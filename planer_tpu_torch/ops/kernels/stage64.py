@@ -1,0 +1,423 @@
+"""Fused ResNet entry stage (stem conv + maxpool + C=64 basic blocks) — the
+port of ``planer_tpu/ops/pallas/stage64.py``.
+
+Two hand-written Hopper kernels (``csrc/stage64.cu``) run the stage:
+
+  * ``stem_pool_requant`` replaces ``_stage_kernel`` in its stem-only forms:
+    7x7/2 s8 conv with int32 accumulation, the 3x3/2 maxpool taken on the
+    raw int32 accumulators (-2^30 border), one requant of the pooled plane;
+  * ``basic_block`` replaces ``_block_kernel``: conv3x3 -> fxp requant ->
+    int8 mid plane kept in shared memory -> conv3x3 + residual -> fxp int8
+    out, or, for a last block without ``out_scale``, exact f32 + ReLU ->
+    bf16 out.
+
+Beside each kernel sits its plain PyTorch version with the same integer
+arithmetic.  A wrapper runs the plain version only for CPU tensors; for a
+CUDA tensor it launches the kernel or raises, and counts the launch in
+``LAUNCHES``.  All requant scales fold on the host in float64 numpy exactly
+as the JAX package folds them (``_fxp_pack`` and ``_pallas_stage``), so the
+int8 planes are bit-identical to the reference's.
+
+The configuration reproduced is the JAX package's default: SPLIT (one call
+for the stem, one per block) with int32 fixed-point ("fxp") epilogues.  Its
+TPU lane layout (row stride, halos, packed dots) is not part of the
+contract.  Ineligible geometries fall back to ``decomposed`` and are counted
+in ``FALLOFF``, as in the reference.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..qtypes import QTensor
+from ..torch_ops import conv_s8, quantize, scalar, _window_max
+
+__all__ = ["stage64", "decomposed", "FALLOFF", "LAUNCHES",
+           "stem_pool_requant", "basic_block", "stem_pool_requant_plain",
+           "basic_block_plain", "stem_prologue"]
+
+# why the fused kernels were skipped, by reason
+FALLOFF = collections.Counter()
+# kernel launches by wrapper: "stem_pool_requant", "basic_block" (int8 out)
+# and "basic_block_last" (bf16 out); plain-version runs are not counted
+LAUNCHES = collections.Counter()
+
+_FXP_MMAX = 115
+# pool border sentinel: far below any s8 x s8 K <= 576 accumulator, exact
+# in f32 and overflow-safe under max
+_NEG = -2 ** 30
+# stem epilogue modes (the kernel's MODE template argument)
+STEM_MODES = {"fxp": 0, "bf16": 1, "trunc": 2}
+
+
+def _fxp_pack(f, b_half, sx=0.0):
+    """Fold per-channel f32 requant (f, b+0.5) into int32 (m, B, s, mr) with
+    clamp((acc*m + res*mr + B) >> s, 0, 127) == clamp(floor(acc*f + res*sx
+    + b + 0.5)) up to the m/mr rounding error.  Headroom budget in int32:
+    |acc*m| <= 2^30, |res*mr| <= 2^29, |B| <= 2^28.  (A float64 numpy copy
+    of the reference's ``_fxp_pack``.)"""
+    f = np.asarray(f, np.float64).reshape(-1)
+    bh = np.asarray(b_half, np.float64).reshape(-1)
+    s = np.floor(np.log2(_FXP_MMAX / np.maximum(f, 1e-30)))
+    if sx:
+        s = np.minimum(s, np.floor(np.log2(2.0 ** 29 / (127.0 * abs(sx)))))
+    s = np.minimum(s, np.floor(np.log2(2.0 ** 28
+                                       / np.maximum(np.abs(bh), 1.0))))
+    s = np.clip(s, 0, 30)
+    p = 2.0 ** s
+    q = np.stack([np.round(f * p), np.round(bh * p), s,
+                  np.round(sx * p)], axis=1)
+    return q.astype(np.int32)
+
+
+# --------------------------------------------------------------------------
+# geometry and eligibility (the reference's, so the port fuses exactly where
+# the reference does)
+# --------------------------------------------------------------------------
+
+_HALO = 128
+_S_MAX = 5760
+
+
+def _geometry(H):
+    """Stage side R = H // 4 for a (H, H) input, or None if unsupported.
+    The reference's TPU lane layout limits (row stride RS with R*RS a
+    multiple of 128, S = R*RS <= 5760, RS + 1 <= 128) decide eligibility."""
+    if H % 4:
+        return None
+    R = H // 4
+    RS = next(r for r in range(R + 2, R + 130) if (R * r) % 128 == 0)
+    if R < 16 or R * RS > _S_MAX or RS + 1 > _HALO:
+        return None
+    return R
+
+
+def _is_q8(w, shape):
+    return (isinstance(w, QTensor) and w.act_scale is not None
+            and w.q.dtype == torch.int8 and tuple(w.q.shape) == shape)
+
+
+def _eligible(x, Ws, bw):
+    """Return the stage side R, or None (recording WHY in FALLOFF)."""
+    if not _is_q8(Ws, (64, 3, 7, 7)):
+        FALLOFF["weights"] += 1
+        return None
+    if x.ndim != 4 or x.shape[1] != 3 or x.shape[2] != x.shape[3]:
+        FALLOFF["shape"] += 1
+        return None
+    R = _geometry(x.shape[2])
+    if R is None:
+        FALLOFF["geometry"] += 1
+        return None
+    if len(bw) % 4:    # empty = stem-only stage (ResNet-50) — allowed
+        FALLOFF["weights"] += 1
+        return None
+    for i in range(0, len(bw), 4):
+        for w in (bw[i], bw[i + 2]):
+            if not _is_q8(w, (64, 64, 3, 3)):
+                FALLOFF["weights"] += 1
+                return None
+    return R
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch versions (the kernels' arithmetic, on any device)
+# --------------------------------------------------------------------------
+
+def stem_prologue(x, s_in):
+    """Quantize the image to int8 codes: clamp(round(x / s_in), -127, 127),
+    as the reference's XLA prologue does before the stem kernel (with the
+    division compiled as XLA compiles it, see torch_ops.quantize)."""
+    return quantize(x, s_in)
+
+
+def _fxp_q(acc, q, res=None):
+    """clamp((acc*m + B [+ res*mr]) >> s, 0, 127) in int32."""
+    m, B, s, mr = (q[:, i].reshape(1, -1, 1, 1) for i in range(4))
+    v = acc * m + B
+    if res is not None:
+        v = v + res.to(torch.int32) * mr
+    return torch.clamp(v >> s, 0, 127).to(torch.int8)
+
+
+def stem_pool_requant_plain(xq, wq, table, mode="fxp"):
+    """(N, 3, H, H) int8 codes -> (N, 64, H/4, H/4): 7x7/2 pad-3 s8 conv,
+    3x3/2 pad-1 max over the int32 accumulators, then one requant.
+    ``mode``: "fxp" (table (64, 4) int32 -> int8), "bf16" (table (2, 64)
+    f32 rows f, b -> relu -> bf16) or "trunc" (f, b -> clip [0, 127.99] ->
+    int8 by truncation)."""
+    acc = conv_s8(xq, wq, (2, 2), (3, 3, 3, 3))
+    pooled = _window_max(acc, 3, 3, 2, 2, (1, 1, 1, 1), _NEG)
+    if mode == "fxp":
+        return _fxp_q(pooled, table).contiguous()
+    f, b = table[0].reshape(1, -1, 1, 1), table[1].reshape(1, -1, 1, 1)
+    v = pooled.float() * f + b
+    if mode == "bf16":
+        return torch.clamp_min(v, 0.0).to(torch.bfloat16).contiguous()
+    # float -> int8 conversion truncates
+    return torch.clamp(v, 0.0, 127.99).to(torch.int8).contiguous()
+
+
+def basic_block_plain(y, w1, q1, w2, e2, sx=0.0, last=False):
+    """One C=64 basic block on int8 codes (N, 64, R, R): conv3x3 -> fxp
+    requant (ReLU folded into the clip) -> conv3x3 + residual.  ``last``
+    False: e2 is the (64, 4) fxp table with the residual's ``mr`` term, int8
+    out.  ``last`` True: e2 is (2, 64) f32 rows f2, b2 and the plane is
+    exact f32 acc*f2 + b2 + res*sx, ReLU, bf16 out."""
+    a1 = conv_s8(y, w1, (1, 1), (1, 1, 1, 1))
+    y1 = _fxp_q(a1, q1)
+    a2 = conv_s8(y1, w2, (1, 1), (1, 1, 1, 1))
+    if not last:
+        return _fxp_q(a2, e2, res=y).contiguous()
+    f2, b2 = e2[0].reshape(1, -1, 1, 1), e2[1].reshape(1, -1, 1, 1)
+    v = a2.float() * f2 + b2 + y.float() * scalar(sx, y)
+    return torch.clamp_min(v, 0.0).to(torch.bfloat16).contiguous()
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers
+# --------------------------------------------------------------------------
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib():
+    from . import build
+    lib = build.load("stage64")
+    if not getattr(lib, "_planer_typed", False):
+        lib.stem_pool_requant.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _VP]
+        lib.stem_pool_requant.restype = _I
+        lib.basic_block.argtypes = [_VP, _VP, _VP, _VP, _VP, _F, _VP, _I,
+                                    _I, _I, _VP]
+        lib.basic_block.restype = _I
+        lib._planer_typed = True
+    return lib
+
+
+def _check(t, name, dtype, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _table_spec(mode):
+    return (torch.int32, (64, 4)) if mode == "fxp" \
+        else (torch.float32, (2, 64))
+
+
+def stem_pool_requant(xq, wq, table, mode="fxp"):
+    """Kernel wrapper for ``stem_pool_requant_plain`` (same arguments).
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if mode not in STEM_MODES:
+        raise ValueError(f"unknown stem mode {mode!r}")
+    if xq.ndim != 4 or xq.shape[1] != 3 or xq.shape[2] != xq.shape[3] \
+            or _geometry(xq.shape[2]) is None:
+        raise ValueError(f"stem input shape {tuple(xq.shape)} unsupported")
+    n, _, h, _ = xq.shape
+    dev = xq.device
+    tdt, tshape = _table_spec(mode)
+    _check(xq, "xq", torch.int8, (n, 3, h, h), dev)
+    _check(wq, "wq", torch.int8, (64, 3, 7, 7), dev)
+    _check(table, "table", tdt, tshape, dev)
+    if dev.type == "cpu":
+        return stem_pool_requant_plain(xq, wq, table, mode)
+    if dev.type != "cuda":
+        raise ValueError(f"stem_pool_requant: no kernel for {dev}")
+    # (64, 147) -> (64, 148): one zero tap so each channel is 37 int32 words
+    w148 = F.pad(wq.reshape(64, 147), (0, 1)).contiguous()
+    odt = torch.bfloat16 if mode == "bf16" else torch.int8
+    out = torch.empty((n, 64, h // 4, h // 4), dtype=odt, device=dev)
+    err = _lib().stem_pool_requant(xq.data_ptr(), w148.data_ptr(),
+                                   table.data_ptr(), out.data_ptr(), n, h,
+                                   STEM_MODES[mode], _stream())
+    if err:
+        raise RuntimeError(f"stem_pool_requant launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["stem_pool_requant"] += 1
+    return out
+
+
+def basic_block(y, w1, q1, w2, e2, sx=0.0, last=False):
+    """Kernel wrapper for ``basic_block_plain`` (same arguments).
+    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    if y.ndim != 4 or y.shape[1] != 64 or y.shape[2] != y.shape[3]:
+        raise ValueError(f"block input shape {tuple(y.shape)} unsupported")
+    dev = y.device
+    edt, eshape = _table_spec("bf16" if last else "fxp")
+    _check(y, "y", torch.int8, y.shape, dev)
+    _check(w1, "w1", torch.int8, (64, 64, 3, 3), dev)
+    _check(w2, "w2", torch.int8, (64, 64, 3, 3), dev)
+    _check(q1, "q1", torch.int32, (64, 4), dev)
+    _check(e2, "e2", edt, eshape, dev)
+    if dev.type == "cpu":
+        return basic_block_plain(y, w1, q1, w2, e2, sx, last)
+    if dev.type != "cuda":
+        raise ValueError(f"basic_block: no kernel for {dev}")
+    n, _, r, _ = y.shape
+    # OIHW -> [ky][kx][o][c]: each (tap, out channel) is 64 contiguous bytes
+    w1p = w1.permute(2, 3, 0, 1).contiguous()
+    w2p = w2.permute(2, 3, 0, 1).contiguous()
+    out = torch.empty((n, 64, r, r),
+                      dtype=torch.bfloat16 if last else torch.int8,
+                      device=dev)
+    err = _lib().basic_block(y.data_ptr(), w1p.data_ptr(), q1.data_ptr(),
+                             w2p.data_ptr(), e2.data_ptr(), float(sx),
+                             out.data_ptr(), n, r, int(bool(last)), _stream())
+    if err:
+        raise RuntimeError(f"basic_block launch failed: CUDA error {err}")
+    LAUNCHES["basic_block_last" if last else "basic_block"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# host folding (the reference's _pallas_stage, in numpy float32/float64)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Block:
+    w1: torch.Tensor
+    q1: torch.Tensor
+    w2: torch.Tensor
+    e2: torch.Tensor
+    sx: float
+    last: bool
+
+
+@dataclasses.dataclass
+class _Plan:
+    s_in: float
+    ws: torch.Tensor
+    stem_mode: str
+    stem_table: torch.Tensor
+    blocks: list
+    out_int8: bool
+
+
+def _np32(v):
+    return v.detach().float().cpu().numpy() if isinstance(v, torch.Tensor) \
+        else np.asarray(v, np.float32)
+
+
+def _fold(Ws, Bs, blocks, out_scale, device):
+    """Fold every requant scale on the host.  The arithmetic follows the
+    reference step by step: float32 products with each Python scalar rounded
+    to float32 once, then ``_fxp_pack`` in float64.  Biases arrive as the
+    program passes them (bf16-rounded in a bf16 program), so the fxp B terms
+    match the reference's."""
+    f32 = np.float32
+
+    def bias(Bw):
+        return (np.zeros((64,), np.float32) if Bw is None
+                else _np32(Bw).reshape(-1)).reshape(64, 1)
+
+    def wscale(W):
+        return _np32(W.scale).reshape(64, 1)
+
+    s_in = float(Ws.act_scale)
+    inv0 = (1.0 / float(blocks[0][0].act_scale) if blocks
+            else (1.0 / out_scale if out_scale else 1.0))
+    f_s = wscale(Ws) * f32(s_in * inv0)
+    b_s = bias(Bs) * f32(inv0) + f32(0.5 if (blocks or out_scale) else 0.0)
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    if blocks:
+        stem_mode, stem_table = "fxp", dev(_fxp_pack(f_s, b_s), torch.int32)
+    else:
+        stem_mode = "trunc" if out_scale else "bf16"
+        stem_table = dev(np.stack([f_s.reshape(-1), b_s.reshape(-1)]),
+                         torch.float32)
+    plan_blocks = []
+    for bi, (W1, B1, W2, B2) in enumerate(blocks):
+        sx_in = float(W1.act_scale)
+        s_mid = float(W2.act_scale)
+        last = bi == len(blocks) - 1
+        inv_out = ((1.0 / out_scale if out_scale else 1.0) if last
+                   else 1.0 / float(blocks[bi + 1][0].act_scale))
+        f1 = wscale(W1) * f32(sx_in / s_mid)
+        b1 = bias(B1) / f32(s_mid) + f32(0.5)
+        f2 = wscale(W2) * f32(s_mid * inv_out)
+        quant_out = (not last) or bool(out_scale)
+        b2 = bias(B2) * f32(inv_out) + f32(0.5 if quant_out else 0.0)
+        sx = sx_in * inv_out
+        # with out_scale the final block keeps the quantizing fxp epilogue
+        flast = last and not out_scale
+        e2 = (dev(np.stack([f2.reshape(-1), b2.reshape(-1)]), torch.float32)
+              if flast else dev(_fxp_pack(f2, b2, sx=sx), torch.int32))
+        plan_blocks.append(_Block(W1.q, dev(_fxp_pack(f1, b1), torch.int32),
+                                  W2.q, e2, sx, flast))
+    return _Plan(s_in, Ws.q, stem_mode, stem_table, plan_blocks,
+                 bool(out_scale))
+
+
+def _run(x, plan, plain=False):
+    stem, block = ((stem_pool_requant_plain, basic_block_plain) if plain
+                   else (stem_pool_requant, basic_block))
+    y = stem(stem_prologue(x, plan.s_in), plan.ws, plan.stem_table,
+             plan.stem_mode)
+    for b in plan.blocks:
+        y = block(y, b.w1, b.q1, b.w2, b.e2, b.sx, b.last)
+    return y if plan.out_int8 else y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# public op
+# --------------------------------------------------------------------------
+
+def decomposed(x, Ws, Bs, *bw):
+    """Reference semantics: exactly the op chain the fusion pass replaced
+    (conv7x7/2 + relu + maxpool3/2 + N x [conv-relu-conv-add-relu])."""
+    from .. import torch_ops as tops
+    y = tops.conv2d(x, Ws, Bs, strides=(2, 2), pads=(3, 3, 3, 3))
+    y = tops.relu(y)
+    y = tops.maxpool(y, w=(3, 3), pads=(1, 1, 1, 1), strides=(2, 2))
+    for i in range(0, len(bw), 4):
+        W1, B1, W2, B2 = bw[i:i + 4]
+        r = y
+        y = tops.relu(tops.conv2d(y, W1, B1, strides=(1, 1),
+                                  pads=(1, 1, 1, 1)))
+        y = tops.conv2d(y, W2, B2, strides=(1, 1), pads=(1, 1, 1, 1))
+        y = tops.relu(tops.add(y, r))
+    return y
+
+
+def stage64(x, Ws, Bs, *bw, out_scale=None, force_decomposed=False,
+            cache=None, plain=False):
+    """Fused ResNet entry stage.  Positional inputs: x, stem W, stem B, then
+    (W1, B1, W2, B2) per block.  ``out_scale`` makes the stage emit int8
+    codes at that scale; the decomposed fallback ignores it and emits float.
+    ``cache`` (a dict owned by the caller) keeps the folded tables between
+    calls with the same weights.  ``plain`` runs the kernels' plain versions
+    on any device — the reference a caller holds the kernels against, as
+    the JAX package's ``interpret`` flag is; it never happens by itself."""
+    if force_decomposed:
+        return decomposed(x, Ws, Bs, *bw)
+    if _eligible(x, Ws, bw) is None:
+        return decomposed(x, Ws, Bs, *bw)
+    key = (out_scale, x.device)
+    plan = cache.get(key) if cache is not None else None
+    if plan is None:
+        blocks = [tuple(bw[i:i + 4]) for i in range(0, len(bw), 4)]
+        plan = _fold(Ws, Bs, blocks, out_scale, x.device)
+        if cache is not None:
+            cache[key] = plan
+    return _run(x, plan, plain)

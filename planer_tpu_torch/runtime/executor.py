@@ -1,0 +1,103 @@
+"""Float32 flow interpreter — the port's counterpart of
+``planer_tpu/runtime/executor.py`` (the JAX package's numpy oracle).
+
+Straight-line evaluation of the flow program in a name -> tensor
+environment, layer chains threading through the edge dst, eager freeing of
+dead tensors.  Every op runs its registry ``oracle_fn``: float32 semantics
+on dequantized weights, quantization annotations ignored.  It is the
+correctness oracle of the quantized program and the engine of calibration.
+
+On a CUDA device it turns TF32 off for both convolutions and matmuls, so
+float32 means float32 (cuDNN convolutions default to TF32).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..ir import Graph
+from ..registry import get_op
+
+__all__ = ["Executor"]
+
+
+def _as_tensor(v, device):
+    if v is None or isinstance(v, torch.Tensor):
+        return v if v is None else v.to(device)
+    return torch.as_tensor(np.asarray(v), device=device)
+
+
+class Executor:
+    def __init__(self, graph: Graph, weights: list, device="cuda"):
+        self.graph = graph
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.weights = [_as_tensor(w, self.device) for w in weights]
+        self.life = graph.liveness()
+        self._layers = graph.layer_map()
+
+    # ------------------------------------------------------------------ API
+    @torch.no_grad()
+    def run(self, *inputs, debug: bool = False,
+            trace_cb: Callable | None = None):
+        env = self.initial_env(*inputs)
+        self.run_range(env, 0, len(self.graph.flow), debug=debug,
+                       trace_cb=trace_cb)
+        last = self.graph.flow[-1]
+        if last.dst_scalar:
+            out = env[last.dst[0]]
+            if isinstance(out, tuple) and len(out) == 1:
+                return out[0]
+            return out
+        out = [env[n] for n in last.dst]
+        return out[0] if len(out) == 1 else tuple(out)
+
+    def initial_env(self, *inputs) -> dict[str, Any]:
+        env: dict[str, Any] = {"None": None}
+        for name, w in zip(self.graph.init_names(), self.weights):
+            env[name] = w
+        for name, x in zip(self.graph.inputs, inputs):
+            env[name] = _as_tensor(x, self.device)
+        return env
+
+    # ------------------------------------------------------------- internals
+    def run_range(self, env: dict[str, Any], start: int, stop: int,
+                  debug: bool = False,
+                  trace_cb: Callable | None = None) -> dict[str, Any]:
+        """Execute flow edges [start, stop) in place on ``env``."""
+        flow = self.graph.flow
+        for i in range(start, stop):
+            edge = flow[i]
+            for li, lname in enumerate(edge.layers):
+                layer = self._layers[lname]
+                spec = get_op(layer.op)
+                # chain semantics: the first layer reads edge.src, the rest
+                # read the edge dst written by their predecessor
+                src = edge.src if li == 0 else edge.dst
+                args = [env.get(s) for s in src]
+                if li == len(edge.layers) - 1:
+                    for s in set(edge.src):
+                        if s in env and self.life.get(s, -1) <= i:
+                            del env[s]
+                out = spec.oracle_fn(*args, **layer.kwargs)
+                if debug:
+                    ish = [getattr(a, "shape", a) for a in args]
+                    osh = (tuple(getattr(o, "shape", o) for o in out)
+                           if isinstance(out, tuple)
+                           else getattr(out, "shape", out))
+                    print(f"{lname} [{layer.op}] {layer.kwargs} "
+                          f"in={ish} out={osh}")
+                if trace_cb is not None:
+                    trace_cb(i, lname, layer, args, out)
+                # a bare-string dst stores the WHOLE result (even a tuple)
+                if edge.dst_scalar or not isinstance(out, tuple):
+                    env[edge.dst[0]] = out
+                else:
+                    for name, v in zip(edge.dst, out):
+                        env[name] = v
+        return env

@@ -1,0 +1,272 @@
+"""IR -> straight-line torch program: the port's counterpart of
+``planer_tpu/runtime/tracer.py``.
+
+PyTorch runs eagerly, so there is nothing to trace or compile; the program
+keeps the tracer's decisions and runs the flow on the device:
+
+1. **Staticness analysis** (``analyze``, the tracer's own): every op
+   application is *static* (all inputs derivable from weights and shapes)
+   or *dynamic*.  Static applications are folded on the host each call and
+   never reach the device; the analysis is per application, not per name.
+2. **Cut point**: the first application that cannot run with static shapes
+   (a data-dependent op, a dynamic shape operand).  The JAX package runs
+   the rest on a numpy host tail; that tail is not ported yet, so such a
+   graph raises ``NotImplementedError``.
+3. **Run**: dynamic applications call the registry's ``fn`` on device
+   tensors.  Weights consumed dynamically are materialized once
+   (quantization layer hook), cast to the compute dtype where they are
+   floating point, and kept on the device.
+
+The compute-dtype policy is the tracer's: ``conv`` and ``add`` get the
+program compute dtype injected (their int8 fast paths cannot infer it),
+int8 graph inputs are lifted to float at the boundary (user values, never
+activation codes), and outputs in the compute dtype leave as float32.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..ir import Graph
+from ..ops.qtypes import QTensor
+from ..ops.torch_ops import to_dtype
+from ..registry import get_op
+
+__all__ = ["Program", "analyze", "GraphPlan"]
+
+
+@dataclasses.dataclass(frozen=True)
+class AppRecord:
+    """Decision for one (edge, chain-position) op application."""
+
+    edge: int
+    li: int
+    kind: str                      # 'static' | 'dyn'
+    arg_static: tuple[bool, ...]   # per positional input: read from static env?
+
+
+@dataclasses.dataclass
+class GraphPlan:
+    """Result of staticness analysis over a Graph."""
+
+    records: list[AppRecord]
+    dyn_weights: set[str]          # inits consumed as runtime data -> params
+    cut: int                       # first non-runnable flow index
+    cut_reason: str | None = None
+
+
+def analyze(graph: Graph) -> GraphPlan:
+    layers = graph.layer_map()
+    static: set[str] = set(graph.init_names()) | {"None"}
+    inits = set(graph.init_names())
+    dyn_weights: set[str] = set()
+    records: list[AppRecord] = []
+    cut = len(graph.flow)
+    reason = None
+
+    for i, edge in enumerate(graph.flow):
+        stop = False
+        for li, lname in enumerate(edge.layers):
+            layer = layers[lname]
+            spec = get_op(layer.op)
+            src = edge.src if li == 0 else edge.dst
+            in_static = tuple(s in static for s in src)
+            if all(in_static):
+                records.append(AppRecord(i, li, "static", in_static))
+                static.update(edge.dst)
+                continue
+            if spec.data_dependent:
+                stop = True
+                reason = f"{lname}[{layer.op}] is data-dependent"
+                break
+            bad = [p for p in spec.static_args
+                   if p < len(src) and not in_static[p]]
+            if bad:
+                stop = True
+                reason = (f"{lname}[{layer.op}] needs static operand(s) "
+                          f"{bad} but they are input-dependent")
+                break
+            records.append(AppRecord(i, li, "dyn", in_static))
+            for p, s in enumerate(src):
+                if in_static[p] and s in inits and p not in spec.static_args:
+                    dyn_weights.add(s)
+            for d in edge.dst:
+                static.discard(d)
+        if stop:
+            cut = i
+            break
+
+    return GraphPlan(records, dyn_weights, cut, reason)
+
+
+def _store(env_tgt, env_other, edge, out):
+    """Write an op result to the destination env, honoring the scalar-dst
+    convention (a bare-string dst holds the WHOLE result, even a tuple)."""
+    if edge.dst_scalar:
+        env_tgt[edge.dst[0]] = out
+        env_other.pop(edge.dst[0], None)
+    elif isinstance(out, tuple):
+        for n, v in zip(edge.dst, out):
+            env_tgt[n] = v
+            env_other.pop(n, None)
+    else:
+        env_tgt[edge.dst[0]] = out
+        env_other.pop(edge.dst[0], None)
+
+
+def _to_device(v, device):
+    if isinstance(v, QTensor):
+        return QTensor(_to_device(v.q, device), _to_device(v.scale, device),
+                       act_dynamic=v.act_dynamic, act_scale=v.act_scale)
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    return torch.as_tensor(np.asarray(v), device=device)
+
+
+def _host(v):
+    """A static value as a host tensor (numpy arrays and scalars wrap)."""
+    if v is None or isinstance(v, torch.Tensor):
+        return v
+    return torch.as_tensor(np.asarray(v))
+
+
+class Program:
+    """Straight-line execution of a Graph on one device.
+
+    ``weight_materializer(name, leaf, op)`` lets the quantization layer
+    override how a params leaf is turned into what an op consumes;
+    ``param_transform`` turns the raw weights into params (e.g. QTensors).
+    ``op_overrides`` injects per-opcode kwargs, e.g.
+    ``{"stage64": {"force_decomposed": True}}``.
+    """
+
+    def __init__(self, graph: Graph, weights: list,
+                 weight_materializer: Callable | None = None,
+                 param_transform: Callable | None = None,
+                 compute_dtype: str | None = None, device="cuda"):
+        graph.validate()
+        self.graph = graph
+        self.weights = weights
+        self.device = resolve_device(device)
+        self.compute_dtype = compute_dtype
+        self.op_overrides: dict[str, dict] = {}
+        self.plan = analyze(graph)
+        if self.plan.cut < len(graph.flow):
+            raise NotImplementedError(
+                f"graph needs a host tail from flow edge {self.plan.cut} "
+                f"({self.plan.cut_reason}); the port does not run host "
+                f"tails yet")
+        self._layers = graph.layer_map()
+        self._cdt = to_dtype(compute_dtype)
+
+        name_to_w = dict(zip(graph.init_names(), weights))
+        self._senv0 = {"None": None, **name_to_w}
+        params = {n: name_to_w[n] for n in sorted(self.plan.dyn_weights)}
+        if param_transform is not None:
+            params = param_transform(params)
+        self.params = {n: _to_device(v, self.device)
+                       for n, v in params.items()}
+        # materialize every dynamically consumed weight once, per consumer
+        self._wargs: dict[tuple[int, int], Any] = {}
+        self._caches: dict[int, dict] = {}
+        for ri, rec in enumerate(self.plan.records):
+            if rec.kind != "dyn":
+                continue
+            edge = graph.flow[rec.edge]
+            layer = self._layers[edge.layers[rec.li]]
+            spec = get_op(layer.op)
+            src = edge.src if rec.li == 0 else edge.dst
+            for p, s in enumerate(src):
+                if rec.arg_static[p] and p not in spec.static_args \
+                        and s in self.params:
+                    leaf = self.params[s]
+                    if weight_materializer is not None:
+                        leaf = weight_materializer(s, leaf, layer.op)
+                    self._wargs[(ri, p)] = self._cast_in(leaf)
+            if spec.cached:
+                self._caches[ri] = {}
+
+    # ------------------------------------------------------------- casting
+    def _cast_in(self, v):
+        if self._cdt is not None and isinstance(v, torch.Tensor) \
+                and v.is_floating_point():
+            return v.to(self._cdt)
+        return v
+
+    def _cast_graph_in(self, v):
+        # int8 GRAPH INPUTS are user values, never activation codes: the
+        # pre-quantized s8 conv gate keys on dtype alone, so lift them
+        if self.graph.quant and v.dtype == torch.int8:
+            return v.to(self._cdt or torch.float32)
+        return self._cast_in(v)
+
+    def _cast_out(self, v):
+        # serve float32 at the boundary regardless of the compute dtype
+        if isinstance(v, tuple):
+            return tuple(self._cast_out(t) for t in v)
+        if self._cdt is not None and isinstance(v, torch.Tensor) \
+                and v.dtype == self._cdt:
+            return v.float()
+        return v
+
+    # ------------------------------------------------------------------ run
+    @torch.inference_mode()
+    def __call__(self, *inputs):
+        graph = self.graph
+        if len(inputs) != len(graph.inputs):
+            raise TypeError(
+                f"model expects {len(graph.inputs)} input(s) "
+                f"{graph.inputs}, got {len(inputs)}")
+        overrides = self.op_overrides
+        if self._cdt is not None:
+            overrides = dict(overrides)
+            for op in ("conv", "add"):
+                overrides[op] = {**overrides.get(op, {}),
+                                 "compute_dtype": self.compute_dtype}
+        env: dict[str, Any] = {}                  # dynamic values (device)
+        senv: dict[str, Any] = dict(self._senv0)  # static values (host)
+        for n, x in zip(graph.inputs, inputs):
+            env[n] = self._cast_graph_in(_to_device(x, self.device))
+
+        for ri, rec in enumerate(self.plan.records):
+            edge = graph.flow[rec.edge]
+            layer = self._layers[edge.layers[rec.li]]
+            spec = get_op(layer.op)
+            src = edge.src if rec.li == 0 else edge.dst
+
+            if rec.kind == "static":
+                out = spec.fn(*[_host(senv[s]) for s in src], **layer.kwargs)
+                _store(senv, env, edge, out)
+                continue
+
+            args = []
+            for p, s in enumerate(src):
+                if (ri, p) in self._wargs:
+                    args.append(self._wargs[(ri, p)])
+                elif rec.arg_static[p]:
+                    v = senv[s]
+                    args.append(v if p in spec.static_args or v is None
+                                else _to_device(v, self.device))
+                else:
+                    args.append(env[s])
+            kw = layer.kwargs
+            ov = overrides.get(layer.op)
+            if ov:
+                kw = {**kw, **ov}
+            if spec.cached:
+                kw = {**kw, "cache": self._caches[ri]}
+            _store(env, senv, edge, spec.fn(*args, **kw))
+
+        final = graph.flow[-1]
+        res = [self._cast_out(env[n] if n in env else _host(senv[n]))
+               for n in final.dst]
+        if final.dst_scalar:
+            out = res[0]
+            if isinstance(out, tuple) and len(out) == 1:
+                return out[0]
+            return out
+        return res[0] if len(res) == 1 else tuple(res)

@@ -1,0 +1,131 @@
+"""Guards of the PyTorch port's boundaries: it never imports the JAX package
+(or jax / ml_dtypes), its entry points default to the CUDA card and refuse
+to fall back quietly, and its kernel wrappers run a plain version only for
+CPU tensors."""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import planer_tpu_torch as pt
+from planer_tpu_torch import models
+from planer_tpu_torch.ops.kernels import stage64 as st
+from planer_tpu_torch.ops.kernels.stage64 import _fxp_pack
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "planer_tpu")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(os.path.join(ROOT, "planer_tpu_torch")):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def _forbidden(name):
+    return name is not None and name.split(".")[0] in FORBIDDEN
+
+
+def test_no_jax_imports_in_port_sources():
+    files = _port_files()
+    assert len(files) > 15 and os.path.exists(files[0])
+    bad = []
+    for path in files:
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                bad += [(path, a.name) for a in node.names
+                        if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                    and _forbidden(node.module):
+                bad.append((path, node.module))
+            elif isinstance(node, ast.Call) and getattr(
+                    node.func, "id", getattr(node.func, "attr", "")) in (
+                    "import_module", "__import__") and node.args \
+                    and isinstance(node.args[0], ast.Constant) \
+                    and _forbidden(str(node.args[0].value)):
+                bad.append((path, node.args[0].value))
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, planer_tpu_torch, chip_smoke\n"
+            "import planer_tpu_torch.ops.kernels.stage64\n"
+            "import planer_tpu_torch.ops.kernels.build\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_entry_points_default_to_cuda():
+    """Without device='cpu' the entry points want the card; on a machine
+    without one they raise instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        assert pt.Net().device.type == "cuda"
+        return
+    for make in (lambda: pt.Net(), lambda: models.resnet18(),
+                 lambda: pt.read_net("missing-model-path")):
+        with pytest.raises((RuntimeError, FileNotFoundError)) as e:
+            make()
+        if e.type is RuntimeError:
+            assert "device='cpu'" in str(e.value)
+    with pytest.raises(RuntimeError):
+        models.resnet18()
+    assert models.resnet18(device="cpu").device.type == "cpu"
+
+
+def _block_args(device="cpu", n=1, r=16):
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.as_tensor(a, device=device)
+    y = t(rng.integers(0, 128, (n, 64, r, r), dtype=np.int8))
+    w1 = t(rng.integers(-127, 128, (64, 64, 3, 3), dtype=np.int8))
+    w2 = t(rng.integers(-127, 128, (64, 64, 3, 3), dtype=np.int8))
+    f = (0.5 + rng.random(64)).astype(np.float32) / 256.0
+    b = (rng.standard_normal(64) * 3.0).astype(np.float32)
+    q1 = t(_fxp_pack(f, b + 0.5))
+    q2 = t(_fxp_pack(f, b + 0.5, sx=0.9))
+    e2 = t(np.stack([f, b]))
+    return y, w1, q1, w2, q2, e2
+
+
+def test_wrappers_run_plain_versions_on_cpu_only():
+    st.LAUNCHES.clear()
+    y, w1, q1, w2, q2, e2 = _block_args()
+    for last, e in ((False, q2), (True, e2)):
+        out = st.basic_block(y, w1, q1, w2, e, 0.9, last)
+        ref = st.basic_block_plain(y, w1, q1, w2, e, 0.9, last)
+        assert torch.equal(out, ref)
+    rng = np.random.default_rng(1)
+    xq = torch.as_tensor(rng.integers(-127, 128, (1, 3, 64, 64), dtype=np.int8))
+    ws = torch.as_tensor(rng.integers(-127, 128, (64, 3, 7, 7), dtype=np.int8))
+    out = st.stem_pool_requant(xq, ws, q1)
+    assert torch.equal(out, st.stem_pool_requant_plain(xq, ws, q1))
+    assert out.shape == (1, 64, 16, 16) and out.dtype == torch.int8
+    assert sum(st.LAUNCHES.values()) == 0
+
+
+def test_wrappers_check_their_arguments():
+    y, w1, q1, w2, q2, e2 = _block_args()
+    with pytest.raises(TypeError):                      # dtype
+        st.basic_block(y.float(), w1, q1, w2, q2, 0.9)
+    with pytest.raises(TypeError):                      # fxp table wanted
+        st.basic_block(y, w1, q1, w2, e2, 0.9, last=False)
+    with pytest.raises(ValueError):                     # contiguity
+        st.basic_block(y.transpose(2, 3), w1, q1, w2, q2, 0.9)
+    with pytest.raises(ValueError):                     # shape
+        st.basic_block(y, w1[:32], q1, w2, q2, 0.9)
+    # a device without a kernel raises rather than falling back
+    meta = [a.to("meta") for a in (y, w1, q1, w2, q2)]
+    with pytest.raises(ValueError, match="no kernel"):
+        st.basic_block(*meta, 0.9)
+    with pytest.raises(ValueError):                     # mixed devices
+        st.basic_block(meta[0], w1, q1, w2, q2, 0.9)
