@@ -18,9 +18,29 @@
    kernels' plain versions and with the float32 executor; then times the
    step at batch 1 and 64.
 
+4. stagen kernel phase: the ``fuse="all"`` body-stage kernel against its
+   plain version (bit-exact) on the real folded tables and activations of
+   built nets, at the three fused 224 geometries (ResNet-18 ``stagen_0``,
+   ResNet-50 ``stagen_0`` and ``stagen_1``) and batch 1 and 64, plus two
+   narrow stages whose channels the wrapper pads; times kernel, plain
+   version and, as a labelled neighbour that is not the same function, the
+   port's decomposed chain of the same stage;
+5. path 2: INT8 ResNet-50 at 224, ``quantize(fuse="all")``: answers at
+   batch 1, 8 and 64 with the counters reset just before, checks 1 stem and,
+   for each of the 2 fused stages, one launch per conv per forward (counted
+   where each conv kernel launches), stagen's ``FALLOFF`` of exactly 2
+   geometry fall-offs per forward (layers 3-4), the program against itself
+   on the plain versions, and prints (without a gate: the fused-stage
+   arithmetic is far from the float model) the gap to the float32
+   executor; the same model with the default fuse (the bf16 stem kernel)
+   is held to the float32 executor; step times of both programs;
+6. path 3: INT8 ResNet-18 at 224, ``quantize(fuse="all")`` (the basic-block
+   stage): batch 1 and 64, launches, ``FALLOFF`` and the plain-version leg.
+
 ``python3 chip_smoke.py --profile DIR`` adds a torch.profiler pass over the
-main path's steps: the device's busy share and time by kernel, with the full
-tables written to ``DIR/profile_b<batch>.txt``.
+steps of the main path and of both ResNet-50 programs: the device's busy
+share and time by kernel, with the full tables written to
+``DIR/profile_<program>_b<batch>.txt``.
 
 Every failure raises and exits non-zero.  The line before the last is one
 JSON object with each kernel's numbers; the last line is
@@ -98,8 +118,8 @@ def agreement(pairs, label, max_p99, need_margin_agree=True):
     return p99, frac
 
 
-def profile_steps(torch, prog, requests, card, out_dir):
-    """Device time by kernel and the device's busy share over main-path
+def profile_steps(torch, prog, requests, card, out_dir, name="main"):
+    """Device time by kernel and the device's busy share over a program's
     steps at batch 1 and 64 (torch.profiler, CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(out_dir, exist_ok=True)
@@ -122,14 +142,16 @@ def profile_steps(torch, prog, requests, card, out_dir):
                 k[0] += e.device_time_total      # microseconds
                 k[1] += 1
         busy = sum(v[0] for v in kern.values()) * 1e-6
-        log(f"profile b{b}: {reps} steps, wall {1e3 * wall / reps:.4f} ms/step,"
+        log(f"profile {name} b{b}: {reps} steps, wall {1e3 * wall / reps:.4f} ms/step,"
             f" device busy {1e3 * busy / reps:.4f} ms/step "
             f"({100 * busy / wall:.1f}% of wall), {sum(v[1] for v in kern.values()) // reps}"
             f" kernels/step ({card})")
-        for name, (us, cnt) in sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]:
+        for kname, (us, cnt) in sorted(kern.items(),
+                                       key=lambda kv: -kv[1][0])[:12]:
             log(f"  {100e-6 * us / busy:5.1f}%  {us / reps:9.1f} us/step  "
-                f"x{cnt // reps:<3d} {name[:110]}")
-        with open(os.path.join(out_dir, f"profile_b{b}.txt"), "w") as f:
+                f"x{cnt // reps:<3d} {kname[:110]}")
+        with open(os.path.join(out_dir, f"profile_{name}_b{b}.txt"),
+                  "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_cuda_time_total", row_limit=60))
 
@@ -223,12 +245,216 @@ def kernel_phase(torch, st, F):
     return stats, lib_stem, lib_block
 
 
+# --------------------------------------------------------------------------
+# fused body stages (stagen)
+# --------------------------------------------------------------------------
+
+PLAIN = {"stage64": {"plain": True}, "stagen": {"plain": True}}
+
+
+def build_net(models, calibrate, synthetic_images, model, fuse):
+    """An INT8 model at 224 as a user builds it: optimize, calibrate on 4
+    synthetic images, quantize with static scales, bf16 compute."""
+    t0 = time.perf_counter()
+    net = getattr(models, model)(seed=SEED, device="cuda")
+    net.optimize()
+    calibrate(net, synthetic_images(4, (3, 224, 224), seed=11, batch=2))
+    net.quantize("int8", activations="static", fuse=fuse)
+    net.astype_compute("bfloat16")
+    log(f"{model} fuse={fuse!r} built: {time.perf_counter() - t0:.1f} s, "
+        f"{sum(l.op == 'stagen' for l in net.graph.layers)} stagen ops")
+    return net
+
+
+def capture_stages(sg, net, x):
+    """One forward on the plain versions; returns each stage that ran fused
+    as (input, weights, blocks, folded plan) — the program's own tables."""
+    seen, orig = [], sg.stagen
+
+    def spy(xs, *w, blocks=None, cache=None, **kw):
+        y = orig(xs, *w, blocks=blocks, cache=cache, **kw)
+        plan = cache.get(xs.device) if cache is not None else None
+        if plan is not None:
+            seen.append((xs, w, blocks, plan))
+        return y
+
+    prog = net.program
+    sg.stagen, prog.op_overrides = spy, PLAIN
+    prog(x)
+    sg.stagen, prog.op_overrides = orig, {}
+    return seen
+
+
+def stage_work(plan, n, h):
+    """(bytes, ops) of one stage call: the int8 input, weights and tables
+    read once, the bf16 output written once; 2 ops per int8 MAC."""
+    nbytes, ops = n * plan.cin * h * h, 0
+    for blk in plan.blocks:
+        ho = h // blk.stride
+        if blk.kind == "basic":
+            sides = [ho, ho]
+        else:
+            sides = [h, ho, ho]
+        convs = list(zip(blk.convs, sides))
+        if blk.proj is not None:
+            convs.append((blk.proj, ho))
+        for c, side in convs:
+            o, ci, k, _ = c.w.shape
+            nbytes += o * ci * k * k + 8 * o
+            ops += 2 * n * side * side * o * ci * k * k
+        h = ho
+    return nbytes + n * plan.cout * h * h * 2, ops
+
+
+def narrow_stages(torch, sg):
+    """Two narrow stages (16 -> 32 channels) with random weights: the
+    kernel wrapper pads their channels to 64."""
+    from planer_tpu_torch.ops.qtypes import QTensor
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+
+    def q(o, c, k, act):
+        w = rng.integers(-127, 128, (o, c, k, k), dtype=np.int8)
+        s = ((0.5 + rng.random((o, 1, 1, 1))) / 256.0).astype(np.float32)
+        return QTensor(torch.as_tensor(w, device=dev),
+                       torch.as_tensor(s, device=dev), True, act)
+
+    def vec(c):
+        return torch.as_tensor((rng.standard_normal(c) * 0.1).astype(
+            np.float32), device=dev).to(torch.bfloat16)
+
+    out = []
+    for kind, h in (("basic", 48), ("bottleneck", 56)):
+        if kind == "basic":
+            w = [q(32, 16, 3, 0.2), vec(32), q(32, 32, 3, 0.9), vec(32),
+                 q(32, 16, 1, 0.2), vec(32),
+                 q(32, 32, 3, 0.8), vec(32), q(32, 32, 3, 0.7), vec(32)]
+        else:
+            w = [q(8, 16, 1, 0.2), vec(8), q(8, 8, 3, 0.9), vec(8),
+                 q(32, 8, 1, 0.8), vec(32), q(32, 16, 1, 0.2), vec(32),
+                 q(8, 32, 1, 0.7), vec(8), q(8, 8, 3, 0.6), vec(8),
+                 q(32, 8, 1, 0.9), vec(32)]
+        blocks = [{"kind": kind, "stride": 2, "down": True},
+                  {"kind": kind, "stride": 1, "down": False}]
+        x = torch.as_tensor((rng.standard_normal((2, 16, h, h)) * 10).astype(
+            np.float32), device=dev).to(torch.bfloat16)
+        out.append((f"narrow {kind} 16->32 s2 at {h}", x, w, blocks,
+                    sg._fold(w, blocks, dev)))
+    return out
+
+
+def stagen_phase(torch, sg, nets, synthetic_images):
+    """The stagen kernel against its plain version, bit for bit, on every
+    fused stage of the built nets at batch 1 and 64 (the program's own
+    folded tables and the stage's real input), and on two narrow stages;
+    times at batch 64."""
+    rows = {}
+    for b in (1, 64):
+        x = next(synthetic_images(b, (3, 224, 224), seed=200 + b, batch=b))
+        x = torch.as_tensor(x, device="cuda")
+        cases = []
+        for model, net in nets.items():
+            for i, (xs, w, blocks, plan) in enumerate(
+                    capture_stages(sg, net, x)):
+                name = (f"stagen[{model} stagen_{i}: {plan.tag}, "
+                        f"R{xs.shape[2] // plan.blocks[0].stride}]")
+                cases.append((name, xs, w, blocks, plan))
+        if b == 1:
+            cases += narrow_stages(torch, sg)
+        for name, xs, w, blocks, plan in cases:
+            xq = sg.stagen_prologue(xs, plan.s_in)
+            out = sg.stagen_stage(xq, plan)
+            torch.cuda.synchronize()
+            ref = sg.stagen_plain(xq, plan)
+            d = float((out.float() - ref.float()).abs().max())
+            ok = out.dtype == ref.dtype == torch.bfloat16 \
+                and out.shape == ref.shape and torch.equal(out, ref)
+            log(f"kernel {name} b{b}: {out.dtype}{tuple(out.shape)} "
+                f"max_abs_err {d} positive {float((ref > 0).float().mean()):.3f}"
+                f" -> {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit(f"kernel {name} disagrees with its plain "
+                                 f"version")
+            if name.startswith("narrow"):
+                continue
+            r = rows.setdefault(name, {
+                "tag": plan.tag, "err": 0.0,
+                "convs": sum(len(blk.convs) + (blk.proj is not None)
+                             for blk in plan.blocks)})
+            r["err"] = max(r["err"], d)
+            if b == 64:
+                nbytes, ops = stage_work(plan, b, xs.shape[2])
+                r.update(
+                    ms=cuda_ms(lambda: sg.stagen_stage(xq, plan), 20),
+                    plain_ms=cuda_ms(lambda: sg.stagen_plain(xq, plan), 5),
+                    neighbour_ms=cuda_ms(
+                        lambda: sg.decomposed(xs, *w, blocks=blocks), 10),
+                    bytes=nbytes, ops=ops)
+                bms, by = bound_ms(nbytes, ops)
+                log(f"  {name} b64: kernel {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms, bound {bms:.4f} ms by {by} "
+                    f"({ops / 1e9:.1f} GOP, {nbytes / 1e6:.1f} MB); "
+                    f"neighbour, not the same function: the port's "
+                    f"decomposed chain of the stage {r['neighbour_ms']:.4f} ms")
+    return rows
+
+
+def drive(net, requests, counters):
+    """Answer every request through Net.__call__ and run(), with the launch
+    and fall-off counters set to 0 just before; returns the answers, the
+    number of forwards and a copy of each counter just after."""
+    for c in counters:
+        c.clear()
+    answers, forwards = {}, 0
+    for b, x in requests.items():
+        answers[b] = net(x)                        # Net.__call__
+        (again,) = net.run(None, {"x": x})         # InferenceSession.run
+        forwards += 2
+        if answers[b].shape != (b, 1000) or not np.isfinite(answers[b]).all():
+            raise SystemExit(f"batch {b}: bad output {answers[b].shape}")
+        if not np.array_equal(again, answers[b]):
+            raise SystemExit(f"batch {b}: run() and __call__ disagree")
+    return answers, forwards, [dict(c) for c in counters]
+
+
+def check_counts(label, got, want):
+    log(f"{label}: {got}")
+    if got != want:
+        raise SystemExit(f"{label}: {got} != {want}")
+
+
+def plain_leg(net, requests, answers, label):
+    """Leg 1: the program with the kernels against the same program with
+    stage64 and stagen on their plain versions."""
+    prog = net.program
+    prog.op_overrides = PLAIN
+    pairs = [(answers[b], prog(requests[b]).cpu().numpy()) for b in requests]
+    prog.op_overrides = {}
+    leg = agreement(pairs, label, 0.02, need_margin_agree=False)
+    same = all(np.array_equal(a, r) for a, r in pairs)
+    log(f"{label}: {'bit-identical' if same else 'NOT bit-identical'}")
+    return leg
+
+
+def step_times(torch, net, requests, label, card):
+    """Step time at batch 1 and 64: device tensors in and out, after
+    warm-up, CUDA events."""
+    prog, out = net.program, {}
+    for b in (1, 64):
+        xd = torch.as_tensor(requests[b], device="cuda")
+        out[b] = cuda_ms(lambda: prog(xd), 50 if b == 1 else 20, warmup=5)
+        log(f"{label} step b{b}: {out[b]:.4f} ms, {1e3 * b / out[b]:.1f} "
+            f"img/s (program on device tensors; CUDA events; {card})")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / "
                                  "CUDA port on one NVIDIA card.")
     ap.add_argument("--profile", metavar="DIR",
-                    help="add a torch.profiler pass over the main path's "
-                    "steps and write its tables to DIR")
+                    help="add a torch.profiler pass over the steps of the "
+                    "main path and of both ResNet-50 programs and write "
+                    "their tables to DIR")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -258,65 +484,87 @@ def main():
 
     # -------------------------------------------------------- main path
     torch.manual_seed(SEED)
-    t0 = time.perf_counter()
-    net = models.resnet18(seed=SEED, device="cuda")
-    net.optimize()
-    calibrate_act_scales(net, synthetic_images(4, (3, 224, 224), seed=11,
-                                               batch=2))
-    net.quantize("int8", activations="static")
-    net.astype_compute("bfloat16")
-    log(f"main path built (optimize, calibrate on 4 images, quantize): "
-        f"{time.perf_counter() - t0:.1f} s")
+    net = build_net(models, calibrate_act_scales, synthetic_images,
+                    "resnet18", None)
     if sum(l.op == "stage64" for l in net.graph.layers) != 1:
         raise SystemExit("main path: the entry stage was not fused")
-
     requests = {b: next(synthetic_images(b, (3, 224, 224), seed=100 + b,
                                          batch=b)) for b in (1, 8, 64)}
-    st.FALLOFF.clear()
-    st.LAUNCHES.clear()
-    answers, forwards = {}, 0
-    for b, x in requests.items():
-        answers[b] = net(x)                        # Net.__call__
-        (again,) = net.run(None, {"x": x})         # InferenceSession.run
-        forwards += 2
-        if answers[b].shape != (b, 1000) or not np.isfinite(answers[b]).all():
-            raise SystemExit(f"batch {b}: bad output {answers[b].shape}")
-        if not np.array_equal(again, answers[b]):
-            raise SystemExit(f"batch {b}: run() and __call__ disagree")
-    launches = dict(st.LAUNCHES)
-    log(f"main path: {forwards} forwards, launches {launches}, "
-        f"falloff {dict(st.FALLOFF)}")
-    want = {"stem_pool_requant": forwards, "basic_block": forwards,
-            "basic_block_last": forwards}
-    if launches != want:
-        raise SystemExit(f"launch counts {launches} != {want}")
-    if st.FALLOFF:
-        raise SystemExit(f"stage64 fell off the fused path: {dict(st.FALLOFF)}")
-
-    # leg 1: the same program with stage64 on the kernels' plain versions
-    prog = net.program
-    prog.op_overrides = {"stage64": {"plain": True}}
-    pairs = [(answers[b], prog(requests[b]).cpu().numpy()) for b in requests]
-    prog.op_overrides = {}
-    leg1 = agreement(pairs, "kernels vs plain stage64 (same program)", 0.02,
-                     need_margin_agree=False)
-    if any(not np.array_equal(a, r) for a, r in pairs):
-        log("note: kernel and plain programs are not bit-identical")
+    answers, forwards, (launches, falloff) = drive(
+        net, requests, [st.LAUNCHES, st.FALLOFF])
+    check_counts("main path stage64 launches", launches, {
+        "stem_pool_requant": forwards, "basic_block": forwards,
+        "basic_block_last": forwards})
+    check_counts("main path stage64 falloff", falloff, {})
+    leg1 = plain_leg(net, requests, answers,
+                     "kernels vs plain stage64 (same program)")
     # leg 3: against the float32 executor (TF32 off), 32 images
     imgs = list(synthetic_images(32, (3, 224, 224), seed=29, batch=16))
     pairs = [(net(x), net(x, engine="oracle")) for x in imgs]
     leg3 = agreement(pairs, "quantized program vs float32 executor", 0.05)
-
-    # step time: device tensors in and out, after warm-up
-    step = {}
-    for b in (1, 64):
-        xd = torch.as_tensor(requests[b], device="cuda")
-        ms = cuda_ms(lambda: prog(xd), 50 if b == 1 else 20, warmup=5)
-        step[b] = ms
-        log(f"step b{b}: {ms:.4f} ms, {1e3 * b / ms:.1f} img/s "
-            f"(program on device tensors; CUDA events; {card})")
+    step_times(torch, net, requests, "main path", card)
     if args.profile:
-        profile_steps(torch, prog, requests, card, args.profile)
+        profile_steps(torch, net.program, requests, card, args.profile)
+
+    # -------------------------------------- stagen kernel, paths 2 and 3
+    from planer_tpu_torch.ops.kernels import stagen as sg
+    nets = {m: build_net(models, calibrate_act_scales, synthetic_images, m,
+                         "all") for m in ("resnet18", "resnet50")}
+    net50d = build_net(models, calibrate_act_scales, synthetic_images,
+                       "resnet50", None)
+    srows = stagen_phase(torch, sg, nets, synthetic_images)
+    counters = [st.LAUNCHES, st.FALLOFF, sg.LAUNCHES, sg.FALLOFF]
+
+    # path 2: ResNet-50, fuse="all", batch 1, 8 and 64
+    net50 = nets["resnet50"]
+    answers, fwd2, (l64, f64, lgn2, fgn) = drive(net50, requests, counters)
+    r50 = [r for name, r in srows.items() if "resnet50" in name]
+    check_counts("path 2 stage64 launches", l64, {"stem_pool_requant": fwd2})
+    check_counts("path 2 stage64 falloff", f64, {})
+    # each of the 2 fused stages launches its convs once per forward
+    check_counts("path 2 stagen conv launches", lgn2, {
+        f"stagen_conv:{r['tag']}": r["convs"] * fwd2 for r in r50})
+    check_counts("path 2 stagen falloff", fgn, {"geometry": 2 * fwd2})
+    leg1_50 = plain_leg(net50, requests, answers,
+                        "path 2 kernels vs plain stage64/stagen (same program)")
+    gap50 = agreement([(net50(x), net50(x, engine="oracle")) for x in imgs],
+                      "path 2 fuse='all' vs float32 executor (printed, not "
+                      "gated: the fused-stage arithmetic)", float("inf"),
+                      need_margin_agree=False)
+    _, fwd2d, (l64d, f64d) = drive(net50d, requests, counters[:2])
+    check_counts("path 2 default-fuse stage64 launches", l64d,
+                 {"stem_pool_requant": fwd2d})
+    check_counts("path 2 default-fuse stage64 falloff", f64d, {})
+    leg3_50 = agreement(
+        [(net50d(x), net50d(x, engine="oracle")) for x in imgs],
+        "path 2 default fuse vs float32 executor", 0.05)
+    steps50 = step_times(torch, net50, requests, "path 2 resnet50 fuse='all'",
+                         card)
+    steps50d = step_times(torch, net50d, requests,
+                          "path 2 resnet50 default fuse", card)
+    if args.profile:
+        profile_steps(torch, net50.program, requests, card, args.profile,
+                      "resnet50_fuse_all")
+        profile_steps(torch, net50d.program, requests, card, args.profile,
+                      "resnet50_default")
+
+    # path 3: ResNet-18, fuse="all", batch 1 and 64
+    net18 = nets["resnet18"]
+    req3 = {b: requests[b] for b in (1, 64)}
+    answers3, fwd3, (l64, f64, lgn3, fgn) = drive(net18, req3, counters)
+    r18 = [r for name, r in srows.items() if "resnet18" in name]
+    check_counts("path 3 stage64 launches", l64, {
+        "stem_pool_requant": fwd3, "basic_block": fwd3,
+        "basic_block_last": fwd3})
+    check_counts("path 3 stage64 falloff", f64, {})
+    check_counts("path 3 stagen conv launches", lgn3, {
+        f"stagen_conv:{r['tag']}": r["convs"] * fwd3 for r in r18})
+    check_counts("path 3 stagen falloff", fgn, {"geometry": 2 * fwd3})
+    leg1_18 = plain_leg(net18, req3, answers3,
+                        "path 3 kernels vs plain stage64/stagen (same program)")
+    gap18 = agreement([(net18(x), net18(x, engine="oracle")) for x in imgs],
+                      "path 3 fuse='all' vs float32 executor (printed, not "
+                      "gated)", float("inf"), need_margin_agree=False)
 
     # ---------------------------------------------------- kernel table
     n = 64
@@ -349,8 +597,31 @@ def main():
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library "
             f"neighbour {r['library_ms']:.4f}) at b{n}")
+    for name, r in srows.items():
+        b_ms, by = bound_ms(r["bytes"], r["ops"])
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "planer_tpu_torch/csrc/stagen.cu",
+            "replaces": "planer_tpu/ops/pallas/stagen.py:157",
+            "launches": (lgn2 if "resnet50" in name else lgn3)[
+                f"stagen_conv:{r['tag']}"],
+            "forwards": fwd2 if "resnet50" in name else fwd3,
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None, "neighbour_ms": r["neighbour_ms"],
+            "neighbour": "not the same function: the port's decomposed chain "
+                         "of the stage (torch._int_mm W8A8 convs where "
+                         "C_in >= 128, cuDNN bf16 convs below)",
+            "batch": n})
+        log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+            f"{b_ms:.4f} by {by}, decomposed neighbour "
+            f"{r['neighbour_ms']:.4f}) at b{n}")
     log(f"legs: plain-stage p99 {leg1[0]:.6g}; executor p99 {leg3[0]:.6g}; "
-        f"total {time.perf_counter() - t_all:.1f} s")
+        f"path 2 plain p99 {leg1_50[0]:.6g}, fuse='all' executor gap p99 "
+        f"{gap50[0]:.6g}, default-fuse executor p99 {leg3_50[0]:.6g}; "
+        f"path 3 plain p99 {leg1_18[0]:.6g}, executor gap p99 "
+        f"{gap18[0]:.6g}; resnet50 steps fuse='all' {steps50}, default "
+        f"{steps50d} ms; total {time.perf_counter() - t_all:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

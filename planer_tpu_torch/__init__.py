@@ -3,8 +3,9 @@
 Loads the same JSON flow IR and ``.pla`` files as the JAX package
 (``planer_tpu``), quantizes the same way (int8 per-output-channel weights,
 calibrated static activation scales, int8 codes chained across convs and
-residual adds) and runs the INT8 ResNet-18 main path on one CUDA card, with
-the fused entry stage as hand-written ``sm_90a`` kernels.  Entry points run
+residual adds) and runs INT8 ResNet-18 and ResNet-50 on one CUDA card, with
+the fused entry stage and, under ``quantize(fuse="all")``, the fused body
+stages as hand-written ``sm_90a`` kernels.  Entry points run
 on the card (``device="cuda"``) unless the caller passes ``device="cpu"``.
 
 The package imports torch and numpy only, never jax or planer_tpu.

@@ -1,0 +1,515 @@
+"""Fused ResNet body stages (basic and bottleneck blocks) — the port of
+``planer_tpu/ops/pallas/stagen.py``.
+
+One ``stagen`` op is one ResNet stage: an optional strided/projected entry
+block followed by identity blocks at the same width.  The TPU runs the whole
+stage in one Pallas kernel (``_stagen_kernel``) with every activation plane
+in VMEM.  A stage does not fit in one SM's shared memory (ResNet-50 layer1
+holds 256 x 56 x 56 int8 = 800 KB per image), so on Hopper the wrapper
+launches a fused conv-epilogue kernel (``csrc/stagen.cu``) once per conv of
+the stage, on int8 NHWC planes it allocates itself.
+
+What is reproduced is the TPU kernel's arithmetic, not the float model's
+(the two are far apart on a calibrated model: ROADMAP "Faults found"):
+
+  * the input quantizes to int8 codes at the first conv's act scale
+    (``stagen_prologue``);
+  * s8 x s8 convs accumulate exactly in int32;
+  * every post-ReLU plane requantizes by the trunc-fold rule
+    ``clamp(acc*f + b, 0, 127.99)`` truncated to int8, with the rounding's
+    +0.5 folded into b; the 1x1 projection residual is requantized once to
+    ``clamp(floor(acc*f + b), -127, 127)``;
+  * a block ends in ``(acc*f + b) + res*sx`` with float32 rounding at each
+    step, clipped and truncated to int8, or, in the stage's last block,
+    ReLU and bfloat16 out (bfloat16 in any program, as the TPU kernel's
+    output buffer is).
+
+The scales fold on the host in numpy (``_fold``) exactly as the reference's
+``_build`` folds them, so the tables and the int8 planes are the
+reference's.  The TPU layout (row padding, halos, space-to-depth phase
+planes) is not part of the contract.  Ineligible stages fall back to
+``decomposed`` and are counted in ``FALLOFF`` by the reference's own gates.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..qtypes import QTensor
+from ..torch_ops import conv_s8, quantize, scalar
+
+__all__ = ["stagen", "decomposed", "parse_blocks", "FALLOFF", "LAUNCHES",
+           "stagen_stage", "stagen_plain", "stagen_prologue"]
+
+# why the fused path was skipped, by reason (the reference's keys)
+FALLOFF = collections.Counter()
+# conv kernel launches, as "stagen_conv:<tag>" by the stage geometry (see
+# _Plan.tag) they ran for; runs of the plain version are not counted
+LAUNCHES = collections.Counter()
+
+# the reference's lane-layout limits, which decide where it fuses
+HALO = 128
+_S_MAX = 5760
+# the kernel's channel granule: planes and weights are zero-padded to it
+_CPAD = 64
+# conv epilogues (the kernel's EPI template argument)
+EPI_RELU, EPI_RES, EPI_SUM, EPI_LAST = 0, 1, 2, 3
+
+
+# --------------------------------------------------------------------------
+# block plan parsing, eligibility (the reference's gates)
+# --------------------------------------------------------------------------
+
+def parse_blocks(blocks, w):
+    """Split the flat weight list into per-block dicts.
+
+    ``blocks``: list of {"kind": "basic"|"bottleneck", "stride": 1|2,
+    "down": bool} (the IR kwarg).  ``w``: flat [W1, B1, W2, B2, (W3, B3),
+    (Wd, Bd)] per block."""
+    out, i = [], 0
+    for b in blocks:
+        d = dict(b)
+        n = 6 if b["kind"] == "bottleneck" else 4
+        d["convs"] = [(w[i + 2 * k], w[i + 2 * k + 1]) for k in range(n // 2)]
+        i += n
+        if b.get("down"):
+            d["proj"] = (w[i], w[i + 1])
+            i += 2
+        out.append(d)
+    if i != len(w):
+        raise ValueError(f"stagen: {len(w)} weights != plan {blocks}")
+    return out
+
+
+def _geometry(R):
+    """The stage's output side R, or None where the reference decomposes:
+    its row stride RS (the first R*RS that is a multiple of 128) must keep
+    S = R*RS <= 5760, RS + 1 <= 128 and waste at most 35% of each row, so
+    the small grids of ResNet layers 3-4 stay decomposed."""
+    if R < 7:
+        return None
+    RS = next(r for r in range(R + 2, R + 130) if (R * r) % 128 == 0)
+    if R * RS > _S_MAX or RS + 1 > HALO or RS > 1.35 * R:
+        return None
+    return R
+
+
+def _eligible(x, w, blocks):
+    """The stage's output side, or None (recording WHY in FALLOFF)."""
+    if not blocks or x.ndim != 4 or x.shape[2] != x.shape[3]:
+        FALLOFF["shape"] += 1
+        return None
+    try:
+        parsed = parse_blocks(blocks, w)
+    except Exception:
+        FALLOFF["weights"] += 1
+        return None
+    for b in parsed:
+        for W, _ in b["convs"] + ([b["proj"]] if b.get("down") else []):
+            if not (isinstance(W, QTensor) and W.act_scale is not None
+                    and W.q.dtype == torch.int8):
+                FALLOFF["weights"] += 1
+                return None
+    st = int(parsed[0].get("stride", 1))
+    H = x.shape[2]
+    if H % st:
+        FALLOFF["geometry"] += 1
+        return None
+    R = _geometry(H // st)
+    if R is None:
+        FALLOFF["geometry"] += 1
+        return None
+    # later blocks must be stride-1 identity blocks at constant width
+    c0 = parsed[0]["convs"][-1][0].q.shape[0]
+    for b in parsed[1:]:
+        if (int(b.get("stride", 1)) != 1 or b.get("down")
+                or b["convs"][-1][0].q.shape[0] != c0):
+            FALLOFF["structure"] += 1
+            return None
+    return R
+
+
+def decomposed(x, *w, blocks=None, on_conv=None):
+    """Reference semantics: exactly the op chain the fusion replaced.
+    ``on_conv(x)``, if given, sees each conv's input, in the order of the
+    weights (calibration records them)."""
+    from .. import torch_ops as tops
+
+    def conv(x, W, B, st=1, pad=0):
+        if on_conv is not None:
+            on_conv(x)
+        return tops.conv2d(x, W, B, strides=(st, st), pads=(pad,) * 4)
+
+    for b in parse_blocks(blocks, w):
+        st = int(b.get("stride", 1))
+        res = x
+        if b["kind"] == "basic":
+            (W1, B1), (W2, B2) = b["convs"]
+            y = tops.relu(conv(x, W1, B1, st, 1))
+            y = conv(y, W2, B2, 1, 1)
+        else:
+            (W1, B1), (W2, B2), (W3, B3) = b["convs"]
+            y = tops.relu(conv(x, W1, B1))
+            y = tops.relu(conv(y, W2, B2, st, 1))
+            y = conv(y, W3, B3)
+        if b.get("down"):
+            Wd, Bd = b["proj"]
+            res = conv(res, Wd, Bd, st)
+        x = tops.relu(tops.add(y, res))
+    return x
+
+
+# --------------------------------------------------------------------------
+# host folding (the reference's _build, in numpy float32/float64)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Conv:
+    """One conv of the stage with its folded epilogue."""
+    w: torch.Tensor          # (O, C, k, k) int8 codes
+    A: torch.Tensor          # (O, k*k*C) int8: A[o, t*C + c] = w[o, c, dy, dx]
+    f: torch.Tensor          # (O,) float32 folded scale
+    b: torch.Tensor          # (O,) float32 folded bias
+    stride: int
+    padded: tuple | None = None   # (A, f, b) zero-padded for the kernel
+
+    @property
+    def k(self):
+        return self.w.shape[2]
+
+
+@dataclasses.dataclass
+class _Block:
+    kind: str
+    stride: int
+    convs: list              # W1, W2 (, W3) as _Conv, in chain order
+    proj: _Conv | None       # the 1x1 projection of an entry block
+    sx_res: float            # the residual's scale into the final sum
+    last: bool
+
+
+@dataclasses.dataclass
+class _Plan:
+    s_in: float
+    blocks: list
+    cin: int
+    cout: int
+
+    @property
+    def tag(self):
+        """The stage's geometry for LAUNCHES: kind, entry stride, widths
+        and depth, e.g. "bottleneck/s2/256-128-512x4"."""
+        b0 = self.blocks[0]
+        cm = b0.convs[1].w.shape[0]
+        return (f"{b0.kind}/s{b0.stride}/{self.cin}-{cm}-{self.cout}"
+                f"x{len(self.blocks)}")
+
+
+def _np32(v):
+    if isinstance(v, torch.Tensor):
+        return v.detach().float().cpu().numpy()
+    return np.asarray(v, np.float32)
+
+
+def _fold_scale(W, num, den=1.0):
+    """The reference's ``_fold``: f32 scale x f32(num / den)."""
+    return _np32(W.scale).reshape(-1) * np.float32(num / den)
+
+
+def _fold_bias(Bv, c, scale, half):
+    """The reference's ``_bias`` plus its folded rounding term: f32 bias x
+    f32(scale), then + half."""
+    v = (np.zeros((c,), np.float32) if Bv is None
+         else _np32(Bv).reshape(-1))
+    return v * np.float32(scale) + np.float32(half)
+
+
+def _res_scale(Wd, cur):
+    """The projection residual's requant step, the reference's choice:
+    it takes 127 * max per-channel weight scale * input scale as the
+    residual's max|v|.  That bounds one product term, not the sum over
+    C_in, so on a calibrated net most residual codes clip (ROADMAP "Faults
+    found"); the port reproduces it."""
+    return float(_np32(Wd.scale).max()) * cur
+
+
+def _pack(wq):
+    """(O, C, k, k) -> (O, k*k*C), tap-major: A[o, t*C + c]."""
+    o = wq.shape[0]
+    return wq.permute(0, 2, 3, 1).reshape(o, -1).contiguous()
+
+
+def _fold(w, blocks, device):
+    """Fold every requant scale on the host, following the reference's
+    ``_build`` step by step: float64 Python scalars rounded to float32 once
+    per product, biases as the program passes them (bf16-rounded in a bf16
+    program)."""
+    parsed = parse_blocks(blocks, w)
+    s_in = float(parsed[0]["convs"][0][0].act_scale)
+
+    def conv(W, f, b, stride=1):
+        return _Conv(W.q, _pack(W.q),
+                     torch.as_tensor(f, dtype=torch.float32, device=device),
+                     torch.as_tensor(b, dtype=torch.float32, device=device),
+                     stride)
+
+    cur = s_in
+    out = []
+    for bi, b in enumerate(parsed):
+        last = bi == len(parsed) - 1
+        st = int(b.get("stride", 1))
+        nxt = (1.0 if last
+               else 1.0 / float(parsed[bi + 1]["convs"][0][0].act_scale))
+        # +0.5 folded into every QUANTIZING bias; the last block's final
+        # bias stays raw for the bf16 out
+        hf = 0.0 if last else 0.5
+        if b["kind"] == "basic":
+            (W1, B1), (W2, B2) = b["convs"]
+            cout = W1.q.shape[0]
+            s_m = float(W2.act_scale)
+            convs = [
+                conv(W1, _fold_scale(W1, cur, s_m),
+                     _fold_bias(B1, cout, 1.0 / s_m, 0.5), st),
+                conv(W2, _fold_scale(W2, s_m * nxt),
+                     _fold_bias(B2, cout, nxt, hf))]
+        else:
+            (W1, B1), (W2, B2), (W3, B3) = b["convs"]
+            cmid, cout = W1.q.shape[0], W3.q.shape[0]
+            s1, s2 = float(W2.act_scale), float(W3.act_scale)
+            convs = [
+                conv(W1, _fold_scale(W1, cur, s1),
+                     _fold_bias(B1, cmid, 1.0 / s1, 0.5)),
+                conv(W2, _fold_scale(W2, s1, s2),
+                     _fold_bias(B2, cmid, 1.0 / s2, 0.5), st),
+                conv(W3, _fold_scale(W3, s2 * nxt),
+                     _fold_bias(B3, cout, nxt, hf))]
+        proj = None
+        if b.get("down"):
+            Wd, Bd = b["proj"]
+            # the residual is requantized once to int8 at its own scale
+            s_res = _res_scale(Wd, cur)
+            proj = conv(Wd, _fold_scale(Wd, cur, s_res),
+                        _fold_bias(Bd, cout, 1.0 / s_res, 0.5), st)
+            sx_res = s_res * nxt
+        else:
+            sx_res = cur * nxt
+        out.append(_Block(b["kind"], st, convs, proj, sx_res, last))
+        cur = (1.0 if last
+               else float(parsed[bi + 1]["convs"][0][0].act_scale))
+    cin = parsed[0]["convs"][0][0].q.shape[1]
+    return _Plan(s_in, out, cin, out[-1].convs[-1].w.shape[0])
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch version (the kernel's arithmetic, NCHW, on any device)
+# --------------------------------------------------------------------------
+
+def stagen_prologue(x, s_in):
+    """Quantize the stage input to int8 codes: clamp(round(x / s_in), -127,
+    127), with the division compiled as the reference's XLA prologue
+    compiles it (a multiply by the float32 reciprocal, torch_ops.quantize)."""
+    return quantize(x, s_in)
+
+
+def _affine(acc, c):
+    return acc.float() * c.f.reshape(1, -1, 1, 1) + c.b.reshape(1, -1, 1, 1)
+
+
+def _requant(acc, c):
+    """Post-ReLU plane: trunc-fold requant (float -> int8 truncates)."""
+    return torch.clamp(_affine(acc, c), 0.0, 127.99).to(torch.int8)
+
+
+def _requant_res(acc, c):
+    """Pre-ReLU projection residual: explicit floor, symmetric clip."""
+    return torch.clamp(torch.floor(_affine(acc, c)), -127.0,
+                       127.0).to(torch.int8)
+
+
+def _block_sum(acc, c, res, sx):
+    """A block's final sum (acc*f + b) + res*sx, each step rounded."""
+    return _affine(acc, c) + res.float() * scalar(sx, res)
+
+
+def stagen_plain(xq, plan):
+    """(N, C, H, H) int8 codes -> (N, Cout, R, R) bfloat16: every block of
+    the stage in NCHW, with the TPU kernel's integer and float32 arithmetic
+    (the replay of ``_stagen_kernel`` that tests/test_stagen.py's
+    ``_simulate`` is)."""
+    cur = xq
+    for blk in plan.blocks:
+        st = (blk.stride, blk.stride)
+        res = cur
+        if blk.proj is not None:
+            res = _requant_res(conv_s8(cur, blk.proj.w, st), blk.proj)
+        if blk.kind == "basic":
+            c1, fin = blk.convs
+            t = _requant(conv_s8(cur, c1.w, st, (1, 1, 1, 1)), c1)
+            acc = conv_s8(t, fin.w, (1, 1), (1, 1, 1, 1))
+        else:
+            c1, c2, fin = blk.convs
+            t = _requant(conv_s8(cur, c1.w), c1)
+            t = _requant(conv_s8(t, c2.w, st, (1, 1, 1, 1)), c2)
+            acc = conv_s8(t, fin.w)
+        v = _block_sum(acc, fin, res, blk.sx_res)
+        if blk.last:
+            return torch.clamp_min(v, 0.0).to(torch.bfloat16).contiguous()
+        cur = torch.clamp(v, 0.0, 127.99).to(torch.int8)
+    raise ValueError("stagen: empty plan")
+
+
+# --------------------------------------------------------------------------
+# kernel wrapper
+# --------------------------------------------------------------------------
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _lib():
+    from . import build
+    lib = build.load("stagen")
+    if not getattr(lib, "_planer_typed", False):
+        lib.stagen_conv.argtypes = [_VP, _VP, _VP, _VP, _VP, _F, _VP, _I, _I,
+                                    _I, _I, _I, _I, _I, _VP]
+        lib.stagen_conv.restype = _I
+        lib._planer_typed = True
+    return lib
+
+
+def _cpad(c):
+    return -(-c // _CPAD) * _CPAD
+
+
+def _kernel_args(c):
+    """The conv's (A, f, b) zero-padded to the kernel's channel granule:
+    A as (Op, k*k*Cp), padded output channels with f = b = 0."""
+    if c.padded is None:
+        o, ci = c.w.shape[0], c.w.shape[1]
+        op, cp = _cpad(o), _cpad(ci)
+        A, f, b = c.A, c.f, c.b
+        if (op, cp) != (o, ci):
+            A = F.pad(A.reshape(o, c.k * c.k, ci),
+                      (0, cp - ci, 0, 0, 0, op - o)).reshape(op, -1)
+            f, b = F.pad(f, (0, op - o)), F.pad(b, (0, op - o))
+        c.padded = (A.contiguous(), f.contiguous(), b.contiguous())
+    return c.padded
+
+
+def _launch(x, h, c, epi, tag, res=None, sx=0.0):
+    """One conv-epilogue kernel launch on an (N, h, h, Cp) int8 NHWC plane.
+    Returns (N, ho, ho, Op) int8 NHWC, or (N, Op, ho, ho) bf16 NCHW for
+    EPI_LAST."""
+    A, f, b = _kernel_args(c)
+    n, cp = x.shape[0], x.shape[3]
+    op = A.shape[0]
+    if A.shape[1] != c.k * c.k * cp:
+        raise ValueError(f"stagen conv: input has {cp} channels, weights "
+                         f"want {A.shape[1] // (c.k * c.k)}")
+    pad = c.k // 2
+    ho = (h + 2 * pad - c.k) // c.stride + 1
+    if epi == EPI_LAST:
+        out = torch.empty((n, op, ho, ho), dtype=torch.bfloat16,
+                          device=x.device)
+    else:
+        out = torch.empty((n, ho, ho, op), dtype=torch.int8, device=x.device)
+    if res is not None and tuple(res.shape) != (n, ho, ho, op):
+        raise ValueError(f"stagen conv: residual {tuple(res.shape)} for an "
+                         f"output of {(n, ho, ho, op)}")
+    err = _lib().stagen_conv(
+        x.data_ptr(), A.data_ptr(), f.data_ptr(), b.data_ptr(),
+        res.data_ptr() if res is not None else None, float(sx),
+        out.data_ptr(), n, h, cp, op, c.k, c.stride, epi,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"stagen_conv launch failed: CUDA error {err}")
+    LAUNCHES[f"stagen_conv:{tag}"] += 1
+    return out, ho
+
+
+def _check_plan(xq, plan):
+    if not isinstance(xq, torch.Tensor) or xq.dtype != torch.int8:
+        raise TypeError(f"stagen: input must be int8 codes, got "
+                        f"{getattr(xq, 'dtype', type(xq))}")
+    if xq.ndim != 4 or xq.shape[2] != xq.shape[3] \
+            or xq.shape[1] != plan.cin:
+        raise ValueError(f"stagen: input shape {tuple(xq.shape)} does not "
+                         f"fit a stage of {plan.cin} input channels")
+    st = plan.blocks[0].stride
+    if xq.shape[2] % st or _geometry(xq.shape[2] // st) is None:
+        raise ValueError(f"stagen: no fused geometry for side "
+                         f"{xq.shape[2]} at stride {st}")
+    if not xq.is_contiguous():
+        raise ValueError("stagen: input must be contiguous")
+    for blk in plan.blocks:
+        for c in blk.convs + ([blk.proj] if blk.proj is not None else []):
+            for t in (c.w, c.A, c.f, c.b):
+                if t.device != xq.device:
+                    raise ValueError(f"stagen: weights on {t.device}, input "
+                                     f"on {xq.device}")
+
+
+def stagen_stage(xq, plan):
+    """Kernel wrapper for ``stagen_plain`` (same arguments and result).
+    CPU tensors run the plain version; CUDA tensors launch the conv kernel
+    once per conv of the stage, on int8 NHWC planes padded to 64 channels."""
+    _check_plan(xq, plan)
+    if xq.device.type == "cpu":
+        return stagen_plain(xq, plan)
+    if xq.device.type != "cuda":
+        raise ValueError(f"stagen: no kernel for {xq.device}")
+    c = xq.shape[1]
+    cur = xq.permute(0, 2, 3, 1)
+    if _cpad(c) != c:
+        cur = F.pad(cur, (0, _cpad(c) - c))
+    cur, h = cur.contiguous(), xq.shape[2]
+    out, tag = None, plan.tag
+    for blk in plan.blocks:
+        res = cur
+        if blk.proj is not None:
+            res, _ = _launch(cur, h, blk.proj, EPI_RES, tag)
+        if blk.kind == "basic":
+            c1, fin = blk.convs
+            t, ho = _launch(cur, h, c1, EPI_RELU, tag)
+        else:
+            c1, c2, fin = blk.convs
+            t, _ = _launch(cur, h, c1, EPI_RELU, tag)
+            t, ho = _launch(t, h, c2, EPI_RELU, tag)
+        epi = EPI_LAST if blk.last else EPI_SUM
+        out, h = _launch(t, ho, fin, epi, tag, res, blk.sx_res)
+        cur = out
+    if out.shape[1] != plan.cout:
+        out = out[:, :plan.cout].contiguous()
+    return out
+
+
+# --------------------------------------------------------------------------
+# public op
+# --------------------------------------------------------------------------
+
+def stagen(x, *w, blocks=None, force_decomposed=False, cache=None,
+           plain=False):
+    """Fused ResNet body stage.  Positional inputs: x, then per block
+    [W1, B1, W2, B2, (W3, B3), (Wd, Bd)] as the ``blocks`` IR kwarg
+    describes (see parse_blocks).  An eligible stage runs fused on every
+    device: the kernels on CUDA tensors, their plain version on CPU tensors.
+    ``cache`` (a dict owned by the caller) keeps the folded tables between
+    calls with the same weights.  ``plain`` runs the plain version on any
+    device — the reference a caller holds the kernels against; it never
+    happens by itself.  A fused stage's output is bfloat16, then cast to
+    x's dtype, as the reference's is."""
+    if force_decomposed or _eligible(x, w, blocks) is None:
+        return decomposed(x, *w, blocks=blocks)
+    key = x.device
+    plan = cache.get(key) if cache is not None else None
+    if plan is None:
+        plan = _fold(w, blocks, x.device)
+        if cache is not None:
+            cache[key] = plan
+    xq = stagen_prologue(x, plan.s_in)
+    y = stagen_plain(xq, plan) if plain else stagen_stage(xq, plan)
+    return y.to(x.dtype)

@@ -32,7 +32,8 @@ from .padding import resolve_conv_pads, resolve_pool_pads
 from .qtypes import QTensor
 
 __all__ = ["conv2d", "dense", "maxpool", "global_average_pool", "relu",
-           "add", "batchnorm", "flatten", "reshape", "stage64", "return_",
+           "add", "batchnorm", "flatten", "reshape", "stage64", "stagen",
+           "return_",
            "conv_s8", "quantize", "scalar", "to_dtype"]
 
 
@@ -79,9 +80,14 @@ def conv_s8(q, wq, strides=(1, 1), pads=(0, 0, 0, 0), dilations=(1, 1)):
     """Exact s8 x s8 -> s32 NCHW conv: ``torch._int_mm`` over an im2col.
 
     cuBLAS's int8 GEMM needs M > 16 and K, N multiples of 8, so the operands
-    are zero-padded up to those minimums (zeros add nothing to the sums)."""
+    are zero-padded up to those minimums (zeros add nothing to the sums).  It
+    also needs the patch matrix row-major: a 1x1 conv's im2col is a
+    column-major view of the NCHW input (cuBLASLt refuses a leading
+    dimension of H*W = 49 at ResNet-50's layer4, batch 1), so it is made
+    contiguous."""
     o, c, kh, kw = wq.shape
     a, (n, ho, wo) = _im2col(q, kh, kw, strides, pads, dilations)
+    a = a.contiguous()
     b = wq.reshape(o, c * kh * kw)
     m, k = a.shape
     kpad, opad = (-k) % 8, (-o) % 8
@@ -342,3 +348,16 @@ def stage64(x, Ws, Bs, *bw, blocks=None, out_scale=None,
     return _st.stage64(x, Ws, Bs, *bw, out_scale=out_scale,
                        force_decomposed=force_decomposed, cache=cache,
                        plain=plain)
+
+
+def stagen(x, *w, blocks=None, force_decomposed=False, cache=None,
+           plain=False):
+    """Fused ResNet body stage (basic or bottleneck blocks): the
+    hand-written Hopper conv kernel on CUDA tensors, its plain PyTorch
+    version on CPU tensors (ops/kernels/stagen.py).  ``cache`` is the
+    program's per-application dict that holds the host-folded tables;
+    ``plain`` (an op override, like ``force_decomposed``) runs the plain
+    version on any device."""
+    from .kernels import stagen as _st
+    return _st.stagen(x, *w, blocks=blocks, force_decomposed=force_decomposed,
+                      cache=cache, plain=plain)

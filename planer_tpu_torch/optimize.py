@@ -17,7 +17,7 @@ import numpy as np
 from .ir import Graph, FlowEdge
 
 __all__ = ["optimize", "fold_bn_into_conv", "annotate_pool_impl",
-           "fuse_stage64", "annotate_output_quant"]
+           "fuse_stage64", "fuse_stagen", "annotate_output_quant"]
 
 
 def _consumer_count(graph: Graph) -> dict[str, int]:
@@ -472,3 +472,161 @@ def optimize(net) -> dict:
     report = {"fold_bn_into_conv": fold_bn_into_conv(net),
               "annotate_pool_impl": annotate_pool_impl(net)}
     return report
+
+
+def fuse_stagen(net) -> int:
+    """Fuse ResNet body stages — a strided/projected entry block plus its
+    following identity blocks at constant width, basic OR bottleneck — into
+    ``stagen`` ops, which run as the fused stage kernel
+    (ops/kernels/stagen.py).  Run AFTER fuse_stage64 (which consumes the
+    entry stem + C=64 basic blocks) and after quantization; like stage64 the
+    op is precision-agnostic and decomposes to exactly the replaced chain
+    for unsupported geometry.  Opt-in: ``Net.quantize(fuse="all")`` runs it,
+    the default fuse does not, as in the JAX package.
+
+    Returns the number of stages fused.
+    """
+    graph: Graph = net.graph
+    layers = graph.layer_map()
+    inits = set(graph.init_names())
+    ishape = {n: tuple(s) for n, s, _ in graph.inits}
+    consumers = _consumer_count(graph)
+    flow = graph.flow
+
+    def single(i, op):
+        e = flow[i] if 0 <= i < len(flow) else None
+        if e is None or len(e.layers) != 1 or layers[e.layers[0]].op != op:
+            return None
+        return e
+
+    def conv_at(i, k, stride, pad, cin=None, cout=None, cmid_eq=None):
+        e = single(i, "conv")
+        if e is None or len(e.src) < 2:
+            return None
+        w = e.src[1]
+        sh = ishape.get(w) if w in inits else None
+        if (sh is None or len(sh) != 4 or sh[2] != k or sh[3] != k
+                or (cin is not None and sh[1] != cin)
+                or (cout is not None and sh[0] != cout)):
+            return None
+        kw = layers[e.layers[0]].kwargs
+        if not (_kw_eq(kw, "strides", (stride, stride), (1, 1))
+                and _kw_eq(kw, "pads", (pad,) * 4, (0, 0, 0, 0))
+                and _kw_eq(kw, "dilations", (1, 1), (1, 1))
+                and int(kw.get("group", 1)) == 1
+                and not kw.get("auto_pad")):
+            return None
+        return e
+
+    def wb(e):
+        return [e.src[1], e.src[2] if len(e.src) > 2 else "None"]
+
+    def try_block(j, y, first, kind=None, want_co=None, want_cm=None):
+        """Match one residual block starting at flow[j] with input ``y``.
+        Returns (n_edges, srcs, desc, out, co, cm) or None."""
+        for knd in (("basic", "bottleneck") if kind is None else (kind,)):
+            for stride in ((1, 2) if first else (1,)):
+                if knd == "basic":
+                    c1 = conv_at(j, 3, stride, 1, cout=want_co)
+                    if c1 is None or c1.src[0] != y:
+                        continue
+                    cin, co = ishape[c1.src[1]][1], ishape[c1.src[1]][0]
+                    cm = co
+                    r1 = single(j + 1, "relu")
+                    c2 = conv_at(j + 2, 3, 1, 1, cin=co, cout=co)
+                    k = j + 3
+                    chain = [c1, r1, c2]
+                else:
+                    c1 = conv_at(j, 1, 1, 0, cout=want_cm)
+                    if c1 is None or c1.src[0] != y:
+                        continue
+                    cin, cm = ishape[c1.src[1]][1], ishape[c1.src[1]][0]
+                    r1 = single(j + 1, "relu")
+                    c2 = conv_at(j + 2, 3, stride, 1, cin=cm, cout=cm)
+                    r2 = single(j + 3, "relu")
+                    c3 = conv_at(j + 4, 1, 1, 0, cin=cm, cout=want_co)
+                    if c3 is None:
+                        continue
+                    co = ishape[c3.src[1]][0]
+                    k = j + 5
+                    chain = [c1, r1, c2, r2, c3]
+                if None in chain:
+                    continue
+                # intra-chain wiring + single consumers
+                ok = True
+                prev = chain[0].dst[0]
+                for e in chain[1:]:
+                    if e.src[0] != prev or consumers.get(prev, 0) != 1:
+                        ok = False
+                        break
+                    prev = e.dst[0]
+                if not ok or consumers.get(prev, 0) != 1:
+                    continue
+                down = first and (stride != 1 or cin != co)
+                cd = None
+                if down:
+                    cd = conv_at(k, 1, stride, 0, cin=cin, cout=co)
+                    if cd is None or cd.src[0] != y:
+                        continue
+                    k += 1
+                ad = single(k, "add")
+                rf = single(k + 1, "relu")
+                res = cd.dst[0] if down else y
+                if (ad is None or rf is None
+                        or sorted(ad.src) != sorted([prev, res])
+                        or rf.src != [ad.dst[0]]
+                        or consumers.get(y, 0) != 2
+                        or consumers.get(ad.dst[0], 0) != 1
+                        or (down and consumers.get(res, 0) != 1)):
+                    continue
+                srcs = wb(chain[0]) + wb(chain[2])
+                if knd == "bottleneck":
+                    srcs += wb(chain[4])
+                if down:
+                    srcs += wb(cd)
+                desc = {"kind": knd, "stride": stride, "down": down}
+                n = (k + 2) - j
+                return n, srcs, desc, rf.dst[0], co, cm
+        return None
+
+    fused = 0
+    i = 0
+    while i < len(flow):
+        m = try_block(i, flow[i].src[0] if flow[i].src else None, True)
+        if m is None:
+            i += 1
+            continue
+        x0 = flow[i].src[0]
+        n, srcs, desc, y, co, cm = m
+        blocks, all_srcs = [desc], list(srcs)
+        drop = list(range(i, i + n))
+        j = i + n
+        while True:
+            m2 = try_block(j, y, False, kind=desc["kind"],
+                           want_co=co, want_cm=cm)
+            if m2 is None:
+                break
+            n2, srcs2, desc2, y, _, _ = m2
+            blocks.append(desc2)
+            all_srcs += srcs2
+            drop += list(range(j, j + n2))
+            j += n2
+        from .ir import Layer
+        name = f"stagen_{fused}"
+        graph.layers.append(Layer(name, "stagen", {"blocks": blocks}))
+        fe = FlowEdge([x0] + all_srcs, [name], [y])
+        dropped = set(drop)
+        dropped_layers = {flow[k2].layers[0] for k2 in dropped}
+        graph.flow = flow = (flow[:i] + [fe]
+                             + [e for k2, e in enumerate(flow) if k2 > i
+                                and k2 not in dropped])
+        graph.layers = [l for l in graph.layers
+                        if l.name not in dropped_layers]
+        layers = graph.layer_map()
+        consumers = _consumer_count(graph)
+        fused += 1
+        i += 1
+    if fused:
+        graph.validate()
+        net._invalidate()
+    return fused

@@ -49,7 +49,8 @@ def calibrate_act_scales(net, batches, percentile: float = 99.99) -> dict:
     {weight_name: scale} and stores it in graph.meta["act_scales"].
 
     A graph fused before calibration (e.g. loaded from a fused .pla) has
-    its stage64 chain replayed so the stage's internal convs get scales too.
+    its stage64 and stagen chains replayed so the stages' internal convs
+    get scales too.
     """
     from .ops import torch_ops as tops
     graph: Graph = net.graph
@@ -63,7 +64,8 @@ def calibrate_act_scales(net, batches, percentile: float = 99.99) -> dict:
             if layers[lname].op == "conv":
                 if len(src) > 1 and src[1] in inits:
                     wname_by_layer[lname] = src[1]
-            elif layers[lname].op == "stage64":
+            elif layers[lname].op in ("stage64", "stagen"):
+                # weights are (W, B) pairs after x: convs at odd positions
                 stage_wnames[lname] = [src[p] for p in
                                        range(1, len(src)) if p % 2 == 1]
     maxima: dict[str, float] = {}
@@ -93,6 +95,13 @@ def calibrate_act_scales(net, batches, percentile: float = 99.99) -> dict:
                 record(names[2 + (k // 4) * 2], y1)
                 y = tops.relu(tops.conv2d(y1, W2, B2, strides=(1, 1),
                                           pads=(1, 1, 1, 1)) + y)
+        elif layer.op == "stagen" and lname in stage_wnames:
+            # the same replay for fused body stages: the decomposed chain
+            # shows each conv's input, in weight order
+            from .ops.kernels.stagen import decomposed
+            names = iter(stage_wnames[lname])
+            decomposed(*args, blocks=layer.kwargs["blocks"],
+                       on_conv=lambda x: record(next(names), x))
 
     oracle = net.oracle
     for x in batches:

@@ -1,8 +1,8 @@
 """Opcode registry: IR opcode -> torch fn + float32-executor fn + metadata.
 
 The port's counterpart of ``planer_tpu/registry.py``, holding the opcodes of
-the INT8 ResNet-18 main path plus ``return``.  Each opcode has two
-functions:
+the INT8 ResNet-18 main path, the fused body stage ``stagen`` and
+``return``.  Each opcode has two functions:
 
   * ``fn`` — what the program runs: the quantized fast paths (int8 codes,
     ``out_scale``/``qadd``, the fused stage kernels);
@@ -56,6 +56,11 @@ def _stage64_f32(x, Ws, Bs, *bw, blocks=None, out_scale=None, **kw):
     return decomposed(x, Ws, Bs, *bw)
 
 
+def _stagen_f32(x, *w, blocks=None, **kw):
+    from .ops.kernels.stagen import decomposed
+    return decomposed(x, *w, blocks=blocks)
+
+
 # compute
 _reg("conv", tops.conv2d, _conv_f32)
 _reg("dense", tops.dense)
@@ -63,6 +68,8 @@ _reg("maxpool", tops.maxpool)
 _reg("gap", tops.global_average_pool)
 # fused ResNet entry stage (emitted by optimize.fuse_stage64)
 _reg("stage64", tops.stage64, _stage64_f32, cached=True)
+# fused ResNet body stage (emitted by optimize.fuse_stagen)
+_reg("stagen", tops.stagen, _stagen_f32, cached=True)
 
 # elementwise
 _reg("relu", tops.relu)

@@ -49,20 +49,30 @@ class Net:
     def quantize(self, mode: str = "int8", skip: tuple = (),
                  activations: str | None = None, fuse: bool | None = None):
         """Per-output-channel weight quantization.  With
-        ``activations='static'`` (scales from a prior calibrate_act_scales
-        run) the ResNet entry stage is also fused into the stage64 kernels
-        and int8 codes are chained between convs (``fuse=False`` to
-        disable)."""
+        ``activations='static'`` (scales from a prior
+        calibrate_act_scales run) the ResNet entry stage is also fused into
+        the stage64 kernels and int8 codes are chained between convs
+        (``fuse=False`` to disable).  ``fuse='all'`` also fuses the body
+        stages (optimize.fuse_stagen); those fused at a supported geometry
+        (R = 28 and 56 at 224) run the stagen kernel.
+
+        ``fuse='all'`` reproduces the JAX package's fused-stage arithmetic,
+        which is far from the float model on a calibrated net: at 224,
+        max|d|/max|y| per image against the float32 executor has a p99 of
+        0.51 on ResNet-50 and 0.44 on ResNet-18 (32 images on an H100,
+        chip_smoke.py), against 0.024 for ResNet-50 with the default fuse.
+        The projection residual's requant step clips nearly every residual
+        code (ROADMAP "Faults found")."""
         from ..quant import quantize_net
-        if fuse == "all":
-            raise NotImplementedError("fuse='all' needs the stagen kernel, "
-                                      "which is not ported yet")
         quantize_net(self, mode=mode, skip=skip, activations=activations)
         if fuse is None:
             fuse = activations == "static" and mode == "int8"
         if fuse:
-            from ..optimize import annotate_output_quant, fuse_stage64
+            from ..optimize import (annotate_output_quant, fuse_stage64,
+                                    fuse_stagen)
             fuse_stage64(self)
+            if fuse == "all":
+                fuse_stagen(self)
             annotate_output_quant(self)
         self._invalidate()
         return self

@@ -14,6 +14,9 @@ import torch
 import planer_tpu_torch as pt
 from planer_tpu_torch import models
 from planer_tpu_torch.ops.kernels import stage64 as st
+from planer_tpu_torch.ops.kernels import stagen as sg
+from planer_tpu_torch.ops.qtypes import QTensor
+from planer_tpu_torch.registry import get_op
 from planer_tpu_torch.ops.kernels.stage64 import _fxp_pack
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -56,6 +59,7 @@ def test_no_jax_imports_in_port_sources():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, planer_tpu_torch, chip_smoke\n"
             "import planer_tpu_torch.ops.kernels.stage64\n"
+            "import planer_tpu_torch.ops.kernels.stagen\n"
             "import planer_tpu_torch.ops.kernels.build\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
@@ -129,3 +133,70 @@ def test_wrappers_check_their_arguments():
         st.basic_block(*meta, 0.9)
     with pytest.raises(ValueError):                     # mixed devices
         st.basic_block(meta[0], w1, q1, w2, q2, 0.9)
+
+
+def _stagen_args(device="cpu", n=1, h=48):
+    """A two-block basic stage 16 -> 32 with a stride-2 entry (R = 24)."""
+    rng = np.random.default_rng(2)
+    t = lambda a: torch.as_tensor(a, device=device)
+
+    def q(o, c, k, act):
+        w = rng.integers(-127, 128, (o, c, k, k), dtype=np.int8)
+        s = ((0.5 + rng.random((o, 1, 1, 1))) / 256.0).astype(np.float32)
+        return QTensor(t(w), t(s), True, act)
+
+    def vec(c):
+        return t((rng.standard_normal(c) * 0.1).astype(np.float32))
+
+    w = [q(32, 16, 3, 0.2), vec(32), q(32, 32, 3, 0.9), vec(32),
+         q(32, 16, 1, 0.2), vec(32),
+         q(32, 32, 3, 0.8), vec(32), q(32, 32, 3, 0.7), vec(32)]
+    blocks = [{"kind": "basic", "stride": 2, "down": True},
+              {"kind": "basic", "stride": 1, "down": False}]
+    x = t((rng.standard_normal((n, 16, h, h)) * 10).astype(np.float32))
+    return x, w, blocks
+
+
+def test_stagen_wrapper_runs_plain_version_on_cpu_only():
+    sg.LAUNCHES.clear()
+    x, w, blocks = _stagen_args()
+    plan = sg._fold(w, blocks, x.device)
+    xq = sg.stagen_prologue(x, plan.s_in)
+    out = sg.stagen_stage(xq, plan)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 32, 24, 24)
+    assert torch.equal(out, sg.stagen_plain(xq, plan))
+    y = sg.stagen(x, *w, blocks=blocks, cache={})
+    assert torch.equal(y, out.float())
+    assert sum(sg.LAUNCHES.values()) == 0
+    # the wrapper checks its input and refuses a device without a kernel
+    with pytest.raises(TypeError):
+        sg.stagen_stage(xq.float(), plan)
+    with pytest.raises(ValueError):
+        sg.stagen_stage(xq[:, :8].contiguous(), plan)
+    with pytest.raises(ValueError):
+        sg.stagen_stage(xq.transpose(2, 3), plan)
+    with pytest.raises(ValueError):
+        sg.stagen_stage(xq[..., :28, :28].contiguous(), plan)
+    with pytest.raises(ValueError, match="weights on"):
+        sg.stagen_stage(xq.to("meta"), plan)
+    mplan = sg._fold(w, blocks, torch.device("meta"))
+    for b in mplan.blocks:
+        for c in b.convs + [b.proj] if b.proj else b.convs:
+            c.w, c.A = c.w.to("meta"), c.A.to("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        sg.stagen_stage(xq.to("meta"), mplan)
+
+
+def test_stagen_opcode_oracle_runs_decomposed_chain():
+    """The registry's stagen: the program runs the fused op, the float32
+    executor the decomposed chain on dequantized weights."""
+    spec = get_op("stagen")
+    assert spec.cached and spec.fn is not spec.oracle_fn
+    x, w, blocks = _stagen_args()
+    deq = [v.dequant() if isinstance(v, QTensor) else v for v in w]
+    y = spec.oracle_fn(x, *deq, blocks=blocks, out_scale=None)
+    ref = sg.decomposed(x, *deq, blocks=blocks)
+    assert torch.equal(y, ref) and y.shape == (1, 32, 24, 24)
+    sg.FALLOFF.clear()
+    fused = spec.fn(x, *w, blocks=blocks, cache={})
+    assert not sg.FALLOFF and fused.shape == y.shape

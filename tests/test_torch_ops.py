@@ -162,6 +162,32 @@ def test_s8_conv_accumulators_exact():
     np.testing.assert_array_equal(acc, ref.astype(np.int64))
 
 
+@pytest.mark.parametrize("k,stride", [(1, 1), (1, 2), (3, 1)])
+def test_s8_conv_hands_int_mm_a_row_major_matrix(k, stride, monkeypatch):
+    """cuBLASLt's int8 GEMM refuses a column-major patch matrix, which a
+    1x1 conv's im2col view is (ResNet-50 layer4 at batch 1 raised
+    CUBLAS_STATUS_NOT_SUPPORTED on the card): conv_s8 passes _int_mm a
+    row-major matrix for every kernel size, and the sums stay exact."""
+    seen = []
+    orig = torch._int_mm
+
+    def spy(a, b):
+        seen.append(a.is_contiguous())
+        return orig(a, b)
+    monkeypatch.setattr(torch, "_int_mm", spy)
+    rng = np.random.default_rng(k + stride)
+    x = rng.integers(-127, 128, size=(1, 64, 7, 7), dtype=np.int8)
+    w = rng.integers(-127, 128, size=(32, 64, k, k), dtype=np.int8)
+    acc = tops.conv_s8(torch.as_tensor(x), torch.as_tensor(w),
+                       (stride, stride), (k // 2,) * 4).numpy()
+    ref = torch.nn.functional.conv2d(
+        torch.as_tensor(x, dtype=torch.float64),
+        torch.as_tensor(w, dtype=torch.float64), stride=stride,
+        padding=k // 2).numpy()
+    assert seen == [True]
+    np.testing.assert_array_equal(acc, ref.astype(np.int64))
+
+
 QADD_CASES = {
     "codes_same_scale": ((0.05, 0.05, 0.05), ("i8", "i8")),
     "codes_rescaled": ((0.05, 0.03, 0.07), ("i8", "i8")),
