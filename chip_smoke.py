@@ -35,11 +35,29 @@
    executor; the same model with the default fuse (the bf16 stem kernel)
    is held to the float32 executor; step times of both programs;
 6. path 3: INT8 ResNet-18 at 224, ``quantize(fuse="all")`` (the basic-block
-   stage): batch 1 and 64, launches, ``FALLOFF`` and the plain-version leg.
+   stage): batch 1 and 64, launches, ``FALLOFF`` and the plain-version leg;
+7. dense_q kernel phase: the weight-only GEMM kernel against its plain
+   version (f32 outputs max|d|/max|y| <= 1e-5; bf16 outputs within one bf16
+   ulp plus the f32 sum-order term, see ``gemm_bound``) at the nine GEMM
+   shapes of path 4 at batch 1 and 64, a dense-shaped call, an f32-x call
+   and a ``matmul_q`` call; times kernel, plain version and, as a labelled
+   neighbour, cuBLAS ``torch.mm`` of bf16 x and pre-dequantized bf16 weights
+   (no scale, no bias);
+8. path 4: weight-only INT8 ResNet-50 at 224 (``quantize("int8")``, bf16
+   compute) with ``torch_ops._PALLAS_CONV1X1`` on: batch 1, 8 and 64, exactly
+   26 dense_q launches per forward and none of stage64 or stagen, the
+   program against itself on the plain versions and against the float32
+   executor; step times with the route on and off, in turns (printed, no
+   claim);
+9. path 5: the main path's ResNet-18 under ``stage64.REQUANT = "trunc"``
+   and under ``stage64.SPLIT = False``: batch 1 and 64, 1 stem and 2 block
+   launches per forward in the trunc forms, ``FALLOFF`` empty, the plain leg
+   bit-identical and the float32-executor leg.  The trunc block kernel is
+   held against its plain version in phase 2.
 
 ``python3 chip_smoke.py --profile DIR`` adds a torch.profiler pass over the
-steps of the main path and of both ResNet-50 programs: the device's busy
-share and time by kernel, with the full tables written to
+steps of the main path, of both ResNet-50 programs of path 2 and of path 4:
+the device's busy share and time by kernel, with the full tables written to
 ``DIR/profile_<program>_b<batch>.txt``.
 
 Every failure raises and exits non-zero.  The line before the last is one
@@ -59,6 +77,7 @@ import numpy as np
 
 SEED = 0
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate
+PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 bandwidth
 MARGIN = 0.02                # decisive-logit filter of the agreement checks
 
@@ -88,9 +107,10 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes, ops):
-    """Least time for the work: bytes over HBM rate vs ops over int8 peak."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_INT8_OPS
+def bound_ms(nbytes, ops, peak=PEAK_INT8_OPS):
+    """Least time for the work: bytes over HBM rate vs ops over the peak of
+    their type (int8 by default)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -181,7 +201,12 @@ def kernel_phase(torch, st, F):
     # the stem-only forms (ResNet-50's stem): bf16 out, or truncated int8
     stem_bf16 = st._fold(Ws, Bs, [], None, dev)
     stem_trunc = st._fold(Ws, Bs, [], 0.05, dev)
-    timed = ("stem_pool_requant", "basic_block", "basic_block_last")
+    # REQUANT = "trunc" (path 5): trunc stem and blocks, bf16 or int8 last
+    plan_t = st._fold(Ws, Bs, blocks, None, dev, "trunc", True)
+    plan_tq = st._fold(Ws, Bs, blocks, 0.11, dev, "trunc", True)
+    timed = ("stem_pool_requant", "basic_block", "basic_block_last",
+             "stem_pool_requant[trunc]", "basic_block[trunc]",
+             "basic_block_last[trunc]")
     stats, errs = {}, {}
     for n in (1, 64):
         x = torch.as_tensor(next(synthetic_images(n, (3, 224, 224), seed=n,
@@ -190,6 +215,11 @@ def kernel_phase(torch, st, F):
         y0 = st.stem_pool_requant_plain(xq, plan.ws, plan.stem_table)
         b0, b1, b1q = plan.blocks[0], plan.blocks[1], plan_q.blocks[1]
         y1 = st.basic_block_plain(y0, b0.w1, b0.q1, b0.w2, b0.e2, b0.sx)
+        t0, t1, t1q = plan_t.blocks[0], plan_t.blocks[1], plan_tq.blocks[1]
+        yt0 = st.stem_pool_requant_plain(xq, plan_t.ws, plan_t.stem_table,
+                                         "trunc")
+        yt1 = st.basic_block_plain(yt0, t0.w1, t0.q1, t0.w2, t0.e2, t0.sx,
+                                   False, True)
         stem, block = st.stem_pool_requant, st.basic_block
         cases = {
             "stem_pool_requant": (stem, (xq, plan.ws, plan.stem_table, "fxp")),
@@ -201,8 +231,17 @@ def kernel_phase(torch, st, F):
                                                b1q.e2, b1q.sx, False)),
             "stem_pool_requant[bf16]": (
                 stem, (xq, plan.ws, stem_bf16.stem_table, "bf16")),
-            "stem_pool_requant[trunc]": (
+            "stem_pool_requant[trunc, stem-only]": (
                 stem, (xq, plan.ws, stem_trunc.stem_table, "trunc")),
+            "stem_pool_requant[trunc]": (
+                stem, (xq, plan.ws, plan_t.stem_table, "trunc")),
+            "basic_block[trunc]": (block, (yt0, t0.w1, t0.q1, t0.w2, t0.e2,
+                                           t0.sx, False, True)),
+            "basic_block_last[trunc]": (block, (yt1, t1.w1, t1.q1, t1.w2,
+                                                t1.e2, t1.sx, True, True)),
+            "basic_block[trunc, out_scale]": (
+                block, (yt1, t1q.w1, t1q.q1, t1q.w2, t1q.e2, t1q.sx, False,
+                        True)),
         }
         plains = {stem: st.stem_pool_requant_plain,
                   block: st.basic_block_plain}
@@ -246,10 +285,123 @@ def kernel_phase(torch, st, F):
 
 
 # --------------------------------------------------------------------------
+# weight-only GEMM (dense_q)
+# --------------------------------------------------------------------------
+
+# path 4's routed 1x1 convs at 224: (Kd, N, side, convs per forward)
+R50_GEMMS = [(256, 128, 56, 1), (512, 128, 28, 3), (128, 512, 28, 4),
+             (512, 256, 28, 1), (1024, 256, 14, 5), (256, 1024, 14, 6),
+             (1024, 512, 14, 1), (2048, 512, 7, 2), (512, 2048, 7, 3)]
+
+
+def gemm_bound(out, ref, bias):
+    """Kernel vs plain version.  f32: max|d|/max|y| <= 1e-5 (the f32 sums in
+    another order).  bf16: one bf16 ulp of the product before the bias plus
+    1e-5 of the largest product (that sum-order difference carried across a
+    rounding boundary), plus one ulp of the result where a bias is added
+    after the cast.  Returns (ok, max_abs_err, share of differing elements,
+    a note on the elements more than one ulp of the pre-bias product
+    apart)."""
+    import torch
+    o, r = out.float(), ref.float()
+    d = (o - r).abs()
+    if out.dtype == torch.float32:
+        ok = float(d.max()) <= 1e-5 * float(r.abs().max())
+        return ok, float(d.max()), float((d > 0).float().mean()), "f32"
+
+    def ulp(a):
+        return torch.exp2(torch.floor(torch.log2(a.abs().clamp_min(
+            2.0 ** -126))) - 7)
+    pre = r if bias is None else r - bias.float().reshape(1, -1)
+    post = 0.0 if bias is None else ulp(r)
+    ok = bool((d <= ulp(pre) + 1e-5 * pre.abs().max() + post).all())
+    over = d > ulp(pre) + post
+    note = f"{int(over.sum())} over one ulp"
+    if over.any():
+        note += (f" (largest |product| among them "
+                 f"{float(pre.abs()[over].max() / pre.abs().max()):.3g} of "
+                 f"the largest)")
+    return ok, float(d.max()), float((d > 0).float().mean()), note
+
+
+def gemm_phase(torch, tg):
+    """dense_q against its plain version at path 4's shapes (batch 1 and 64)
+    and three more calls; times at batch 64.  Returns per-shape rows."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("TF32 matmuls are on: the plain version would round")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+
+    def weights(n, kd):
+        q = torch.as_tensor(rng.integers(-127, 128, (n, kd), dtype=np.int8),
+                            device=dev)
+        s = torch.as_tensor(((0.5 + rng.random((n, 1))) * 0.05 / 127.0
+                             ).astype(np.float32), device=dev)
+        b = torch.as_tensor((rng.standard_normal(n) * 0.1).astype(np.float32),
+                            device=dev)
+        return q, s, b
+
+    cases = []
+    for b in (1, 64):
+        for kd, n, side, cnt in R50_GEMMS:
+            cases.append((f"{kd}->{n} M={b * side * side}", b * side * side,
+                          kd, n, torch.bfloat16, "dense", cnt if b == 64
+                          else 0))
+    cases += [("dense-shaped M=64 2048->1024", 64, 2048, 1024,
+               torch.bfloat16, "dense", 0),
+              ("f32 x M=6272 512->128", 6272, 512, 128, torch.float32,
+               "dense", 0),
+              ("matmul_q M=64 512->1024", 64, 512, 1024, torch.bfloat16,
+               "matmul_q", 0)]
+    rows = []
+    for name, m, kd, n, dt, how, cnt in cases:
+        q, s, bias = weights(n, kd)
+        x = torch.randn(m, kd, device=dev).to(dt)
+        B = bias.to(dt) if how == "dense" else None
+        if how == "matmul_q":
+            from planer_tpu_torch.ops.qtypes import QTensor
+            kt = QTensor(q.t().contiguous(), s.reshape(1, -1))
+            run = lambda: tg.matmul_q(x, kt)                # noqa: E731
+            plain = lambda: tg.matmul_q(x, kt, plain=True)  # noqa: E731
+        else:
+            run = lambda: tg.dense_q_kernel(x, q, s, B)      # noqa: E731
+            plain = lambda: tg.dense_q_plain(x, q, s, B)     # noqa: E731
+        before = tg.LAUNCHES["dense_q"]
+        out = run()
+        torch.cuda.synchronize()
+        if tg.LAUNCHES["dense_q"] != before + 1:
+            raise SystemExit(f"dense_q {name}: the kernel did not launch")
+        ref = plain()
+        ok, err, share, over = gemm_bound(out, ref, B)
+        log(f"kernel dense_q[{name}] {dt}: max_abs_err {err} differing "
+            f"{share:.3g}, {over} -> {'ok' if ok else 'MISMATCH'}")
+        if not ok or out.shape != ref.shape or out.dtype != ref.dtype:
+            raise SystemExit(f"kernel dense_q[{name}] disagrees with its "
+                             f"plain version")
+        if not cnt:
+            continue
+        wdq = (q.float() * s).to(torch.bfloat16)
+        nbytes = m * kd * 2 + n * kd + n * 4 + n * 2 + m * n * 2
+        ops = 2 * m * n * kd
+        b_ms, by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
+        row = {"shape": name, "per_forward": cnt, "max_abs_err": err,
+               "ms": cuda_ms(run, 20), "plain_ms": cuda_ms(plain, 5),
+               "neighbour_ms": cuda_ms(lambda: torch.mm(x, wdq.t()), 20),
+               "bound_ms": b_ms, "bound_by": by, "bytes": nbytes, "ops": ops}
+        rows.append(row)
+        log(f"  dense_q[{name}] b64: kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f}, bound {b_ms:.4f} by {by} "
+            f"({ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), neighbour "
+            f"(cuBLAS torch.mm, no scale or bias) {row['neighbour_ms']:.4f} ms")
+    tg.LAUNCHES.clear()
+    return rows
+
+
+# --------------------------------------------------------------------------
 # fused body stages (stagen)
 # --------------------------------------------------------------------------
 
-PLAIN = {"stage64": {"plain": True}, "stagen": {"plain": True}}
+PLAIN = {op: {"plain": True} for op in ("stage64", "stagen", "conv", "dense")}
 
 
 def build_net(models, calibrate, synthetic_images, model, fuse):
@@ -423,9 +575,9 @@ def check_counts(label, got, want):
         raise SystemExit(f"{label}: {got} != {want}")
 
 
-def plain_leg(net, requests, answers, label):
+def plain_leg(net, requests, answers, label, need_same=False):
     """Leg 1: the program with the kernels against the same program with
-    stage64 and stagen on their plain versions."""
+    its kernels' plain versions (stage64, stagen, dense_q)."""
     prog = net.program
     prog.op_overrides = PLAIN
     pairs = [(answers[b], prog(requests[b]).cpu().numpy()) for b in requests]
@@ -433,6 +585,8 @@ def plain_leg(net, requests, answers, label):
     leg = agreement(pairs, label, 0.02, need_margin_agree=False)
     same = all(np.array_equal(a, r) for a, r in pairs)
     log(f"{label}: {'bit-identical' if same else 'NOT bit-identical'}")
+    if need_same and not same:
+        raise SystemExit(f"{label}: not bit-identical")
     return leg
 
 
@@ -519,7 +673,8 @@ def main():
     net50 = nets["resnet50"]
     answers, fwd2, (l64, f64, lgn2, fgn) = drive(net50, requests, counters)
     r50 = [r for name, r in srows.items() if "resnet50" in name]
-    check_counts("path 2 stage64 launches", l64, {"stem_pool_requant": fwd2})
+    check_counts("path 2 stage64 launches", l64,
+                 {"stem_pool_requant[bf16]": fwd2})
     check_counts("path 2 stage64 falloff", f64, {})
     # each of the 2 fused stages launches its convs once per forward
     check_counts("path 2 stagen conv launches", lgn2, {
@@ -533,7 +688,7 @@ def main():
                       need_margin_agree=False)
     _, fwd2d, (l64d, f64d) = drive(net50d, requests, counters[:2])
     check_counts("path 2 default-fuse stage64 launches", l64d,
-                 {"stem_pool_requant": fwd2d})
+                 {"stem_pool_requant[bf16]": fwd2d})
     check_counts("path 2 default-fuse stage64 falloff", f64d, {})
     leg3_50 = agreement(
         [(net50d(x), net50d(x, engine="oracle")) for x in imgs],
@@ -566,11 +721,76 @@ def main():
                       "path 3 fuse='all' vs float32 executor (printed, not "
                       "gated)", float("inf"), need_margin_agree=False)
 
+    # ------------------------------------- dense_q kernel and path 4
+    from planer_tpu_torch.ops import torch_ops as tops
+    from planer_tpu_torch.ops.kernels import gemm as tg
+    grows = gemm_phase(torch, tg)
+    t0 = time.perf_counter()
+    net4 = models.resnet50(seed=SEED, device="cuda")
+    net4.optimize()
+    net4.quantize("int8")                      # weight-only: no act scales
+    net4.astype_compute("bfloat16")
+    log(f"resnet50 weight-only int8 built: {time.perf_counter() - t0:.1f} s")
+    counters4 = [tg.LAUNCHES, st.LAUNCHES, sg.LAUNCHES]
+    tops._PALLAS_CONV1X1 = True
+    try:
+        answers4, fwd4, (lq4, l64_4, lgn4) = drive(net4, requests, counters4)
+        check_counts("path 4 dense_q launches", lq4, {"dense_q": 26 * fwd4})
+        check_counts("path 4 stage64 and stagen launches", {**l64_4, **lgn4},
+                     {})
+        leg1_4 = plain_leg(net4, requests, answers4,
+                           "path 4 kernels vs plain dense_q (same program)")
+        leg3_4 = agreement([(net4(x), net4(x, engine="oracle")) for x in imgs],
+                           "path 4 weight-only int8 vs float32 executor", 0.05)
+    finally:
+        tops._PALLAS_CONV1X1 = False
+    # the reference's own A/B (experiments/resnet50_bench.py), on the card,
+    # in turns: route on, off, off, on
+    steps4 = {"on": [], "off": []}
+    for route in ("on", "off", "off", "on"):
+        tops._PALLAS_CONV1X1 = route == "on"
+        try:
+            steps4[route].append(step_times(
+                torch, net4, requests, f"path 4 resnet50 weight-only, 1x1 "
+                f"route {route}", card))
+        finally:
+            tops._PALLAS_CONV1X1 = False
+    if args.profile:
+        tops._PALLAS_CONV1X1 = True
+        try:
+            profile_steps(torch, net4.program, requests, card, args.profile,
+                          "resnet50_weight_only_route")
+        finally:
+            tops._PALLAS_CONV1X1 = False
+
+    # ---------------- path 5: the main path under the stage64 A/B flags
+    req5 = {b: requests[b] for b in (1, 64)}
+    trunc_keys = ("stem_pool_requant[trunc]", "basic_block[trunc]",
+                  "basic_block_last[trunc]")
+    l5, legs5 = {}, {}
+    for form, split, requant in (("trunc", True, "trunc"),
+                                 ("one-call", False, "fxp")):
+        st.SPLIT, st.REQUANT = split, requant
+        try:
+            answers5, fwd5, (l5[form], f5) = drive(
+                net, req5, [st.LAUNCHES, st.FALLOFF])
+            check_counts(f"path 5 ({form}) stage64 launches", l5[form],
+                         {k: fwd5 for k in trunc_keys})
+            check_counts(f"path 5 ({form}) stage64 falloff", f5, {})
+            legs5[form] = (
+                plain_leg(net, req5, answers5, f"path 5 ({form}) kernels vs "
+                          f"plain stage64 (same program)", need_same=True),
+                agreement([(net(x), net(x, engine="oracle")) for x in imgs],
+                          f"path 5 ({form}) vs float32 executor", 0.05))
+        finally:
+            st.SPLIT, st.REQUANT = True, "fxp"
+
     # ---------------------------------------------------- kernel table
     n = 64
     stem_bytes = n * 3 * 224 * 224 + 64 * 147 + 64 * 4 * 4 + n * 64 * 56 * 56
     stem_ops = 2 * n * 112 * 112 * 64 * 147
     blk_ops = 2 * 2 * n * 56 * 56 * 64 * 576
+    trunc_tables = 2 * 64 * 4
     rows = []
     for name, src_line, nbytes, ops, lib, lib_call in (
             ("stem_pool_requant", 303, stem_bytes, stem_ops, lib_stem,
@@ -582,17 +802,35 @@ def main():
             ("basic_block_last", 469,
              n * 64 * 56 * 56 * 3 + 2 * 64 * 576 + 64 * 16 + 2 * 64 * 4,
              blk_ops, lib_block, "cuDNN bf16 conv 3x3 64->64 at b64 "
-             "(neighbour: one of the block's two convs)")):
+             "(neighbour: one of the block's two convs)"),
+            ("stem_pool_requant[trunc]", 303,
+             stem_bytes - 64 * 4 * 4 + trunc_tables, stem_ops, lib_stem,
+             "cuDNN bf16 conv 7x7/2 3->64 at b64 (neighbour: no pool, no "
+             "requant)"),
+            ("basic_block[trunc]", 469,
+             n * 64 * 56 * 56 * 2 + 2 * 64 * 576 + 2 * trunc_tables, blk_ops,
+             lib_block, "cuDNN bf16 conv 3x3 64->64 at b64 (neighbour: one of "
+             "the block's two convs)"),
+            ("basic_block_last[trunc]", 469,
+             n * 64 * 56 * 56 * 3 + 2 * 64 * 576 + 2 * trunc_tables, blk_ops,
+             lib_block, "cuDNN bf16 conv 3x3 64->64 at b64 (neighbour: one of "
+             "the block's two convs)")):
         s = stats[name]
         b_ms, by = bound_ms(nbytes, ops)
-        rows.append({
+        row = {
             "name": name, "route": "cuda",
             "source": "planer_tpu_torch/csrc/stage64.cu",
             "replaces": f"planer_tpu/ops/pallas/stage64.py:{src_line}",
-            "launches": launches[name], "max_abs_err": s["err"],
+            "max_abs_err": s["err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": b_ms,
             "bound_by": by, "library_ms": lib, "library_call": lib_call,
-            "batch": n})
+            "batch": n}
+        if name in trunc_keys:     # path 5: REQUANT="trunc" and SPLIT=False
+            row.update(launches=l5["trunc"][name],
+                       launches_one_call=l5["one-call"][name])
+        else:
+            row["launches"] = launches[name]
+        rows.append(row)
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library "
@@ -616,6 +854,34 @@ def main():
         log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
             f"{b_ms:.4f} by {by}, decomposed neighbour "
             f"{r['neighbour_ms']:.4f}) at b{n}")
+    per_fwd = {k: sum(r[k] * r["per_forward"] for r in grows)
+               for k in ("ms", "plain_ms", "neighbour_ms", "bound_ms")}
+    rows.append({
+        "name": "dense_q", "route": "cuda",
+        "source": "planer_tpu_torch/csrc/gemm.cu",
+        "replaces": "planer_tpu/ops/pallas/gemm.py:56",
+        "launches": lq4["dense_q"], "forwards": fwd4,
+        "max_abs_err": max(r["max_abs_err"] for r in grows),
+        "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
+        "bound_ms": per_fwd["bound_ms"],
+        "bound_by": "bytes" if sum(r["bound_by"] == "bytes" for r in grows)
+        * 2 > len(grows) else "operations",
+        "library_ms": None, "neighbour_ms": per_fwd["neighbour_ms"],
+        "neighbour": "not the same function: cuBLAS torch.mm of bf16 x and "
+                     "pre-dequantized bf16 weights, without the scale and "
+                     "the bias",
+        "batch": n, "per": "the 26 launches of one b64 forward of path 4, "
+                           "summed over the shapes",
+        "shapes": grows})
+    log(f"dense_q per b64 forward (26 launches): {per_fwd['ms']:.4f} ms "
+        f"(plain {per_fwd['plain_ms']:.4f}, bound {per_fwd['bound_ms']:.4f}, "
+        f"torch.mm neighbour {per_fwd['neighbour_ms']:.4f}); "
+        f"{sum(r['ops'] * r['per_forward'] for r in grows) / 1e9:.1f} GFLOP")
+    log(f"path 4: plain p99 {leg1_4[0]:.6g}, executor p99 {leg3_4[0]:.6g}; "
+        f"steps route on {steps4['on']}, off {steps4['off']} ms (printed, no "
+        f"claim); path 5: " + "; ".join(
+            f"{k} plain p99 {v[0][0]:.6g}, executor p99 {v[1][0]:.6g}"
+            for k, v in legs5.items()))
     log(f"legs: plain-stage p99 {leg1[0]:.6g}; executor p99 {leg3[0]:.6g}; "
         f"path 2 plain p99 {leg1_50[0]:.6g}, fuse='all' executor gap p99 "
         f"{gap50[0]:.6g}, default-fuse executor p99 {leg3_50[0]:.6g}; "

@@ -9,10 +9,16 @@
 // (MODE 2).
 //
 // basic_block replaces stage64.py:_block_kernel: one C=64 basic block on int8
-// codes.  conv3x3 -> fxp requant (ReLU folded into the clip) -> int8 mid
-// plane kept in shared memory, never in device memory (halos recomputed at
-// tile edges) -> conv3x3 + residual -> fxp int8 out, or, for the last block
+// codes.  conv3x3 -> requant (ReLU folded into the clip) -> int8 mid plane
+// kept in shared memory, never in device memory (halos recomputed at tile
+// edges) -> conv3x3 + residual -> requant to int8 out, or, for the last block
 // of a stage without out_scale, exact f32 acc*f2 + b2 + res*sx, ReLU, bf16.
+// The int8 requants are the reference's REQUANT forms: int32 fixed point
+// (fxp, the default) or, with TRUNC, f32 acc*f + b [+ res*sx] clipped to
+// [0, 127.99] and truncated (stage64.py:627-629, :644-648).  The reference's
+// one-call form (SPLIT = False: _stage_kernel with blocks) computes the same
+// function as the trunc stem followed by the trunc blocks, so the wrapper
+// runs it as that chain of launches.
 //
 // What bounds them on the H100: both do 0.24 (stem) and 0.46 (block) GOP per
 // image of int8 MACs against 0.35-0.6 MB per image of device-memory traffic,
@@ -216,10 +222,15 @@ __device__ __forceinline__ void load_weights(int32_t* ws, const int8_t* __restri
   for (int i = threadIdx.x; i < B_W_BYTES / 16; i += B_THREADS) dst[i] = src[i];
 }
 
-template <bool LAST>
+// clip(v, 0, 127.99) truncated to int8, as the reference's f32 -> int8 store
+__device__ __forceinline__ uint32_t trunc_code(float v) {
+  return (uint32_t)(int)fminf(fmaxf(v, 0.f), 127.99f);
+}
+
+template <bool LAST, bool TRUNC>
 __global__ void __launch_bounds__(B_THREADS, 2)
 block_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w1p,
-             const int32_t* __restrict__ q1, const int8_t* __restrict__ w2p,
+             const void* __restrict__ q1, const int8_t* __restrict__ w2p,
              const void* __restrict__ e2, float sx, void* __restrict__ out,
              int R, int tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -264,8 +275,15 @@ block_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w1p,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int o = 4 * j + e;
-          const int v = (acc[o] * q1[o * 4 + 0] + q1[o * 4 + 1]) >> q1[o * 4 + 2];
-          wv |= (uint32_t)min(max(v, 0), 127) << (8 * e);
+          if (TRUNC) {
+            const float* fb = reinterpret_cast<const float*>(q1);
+            // the product rounded, then the sum, as the reference's source reads
+            wv |= trunc_code(__fadd_rn(__fmul_rn((float)acc[o], fb[o]), fb[64 + o])) << (8 * e);
+          } else {
+            const int32_t* q = reinterpret_cast<const int32_t*>(q1) + o * 4;
+            const int v = (acc[o] * q[0] + q[1]) >> q[2];
+            wv |= (uint32_t)min(max(v, 0), 127) << (8 * e);
+          }
         }
         dst[j] = wv;
       }
@@ -296,6 +314,11 @@ block_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w1p,
           const float v = __fadd_rn(__fadd_rn(__fmul_rn((float)acc[o], fb[o]), fb[64 + o]),
                                     __fmul_rn((float)r, sx));
           o16[(size_t)o * plane] = __float2bfloat16_rn(fmaxf(v, 0.f));
+        } else if (TRUNC) {
+          const float* fb = reinterpret_cast<const float*>(e2);
+          const float v = __fadd_rn(__fadd_rn(__fmul_rn((float)acc[o], fb[o]), fb[64 + o]),
+                                    __fmul_rn((float)r, sx));
+          o8[(size_t)o * plane] = (int8_t)trunc_code(v);
         } else {
           const int32_t* q = reinterpret_cast<const int32_t*>(e2) + o * 4;
           const int v = (acc[o] * q[0] + q[1] + r * q[3]) >> q[2];
@@ -343,23 +366,29 @@ extern "C" int stem_pool_requant(const void* x, const void* w148, const void* ta
   return (int)cudaGetLastError();
 }
 
+template <bool LAST, bool TRUNC>
+static int launch_block(const int8_t* x, const int8_t* w1, const void* q1, const int8_t* w2,
+                        const void* e2, float sx, void* out, int n, int r, cudaStream_t s) {
+  const int tiles = (r + BT - 1) / BT;
+  const cudaError_t e = allow_smem(block_kernel<LAST, TRUNC>, B_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  block_kernel<LAST, TRUNC><<<n * tiles * tiles, B_THREADS, B_SMEM, s>>>(
+      x, w1, q1, w2, e2, sx, out, r, tiles);
+  return (int)cudaGetLastError();
+}
+
+// last: bf16 out (exact f32 epilogue); trunc: the REQUANT = "trunc" int8 epilogues
 extern "C" int basic_block(const void* x, const void* w1p, const void* q1, const void* w2p,
                            const void* e2, float sx, void* out, int n, int r, int last,
-                           void* stream) {
-  const int tiles = (r + BT - 1) / BT;
-  const dim3 grid(n * tiles * tiles);
+                           int trunc, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int8_t* xi = reinterpret_cast<const int8_t*>(x);
   const int8_t* w1 = reinterpret_cast<const int8_t*>(w1p);
   const int8_t* w2 = reinterpret_cast<const int8_t*>(w2p);
-  const int32_t* q = reinterpret_cast<const int32_t*>(q1);
-  cudaError_t e;
   if (last) {
-    if ((e = allow_smem(block_kernel<true>, B_SMEM)) != cudaSuccess) return (int)e;
-    block_kernel<true><<<grid, B_THREADS, B_SMEM, s>>>(xi, w1, q, w2, e2, sx, out, r, tiles);
-  } else {
-    if ((e = allow_smem(block_kernel<false>, B_SMEM)) != cudaSuccess) return (int)e;
-    block_kernel<false><<<grid, B_THREADS, B_SMEM, s>>>(xi, w1, q, w2, e2, sx, out, r, tiles);
+    return trunc ? launch_block<true, true>(xi, w1, q1, w2, e2, sx, out, n, r, s)
+                 : launch_block<true, false>(xi, w1, q1, w2, e2, sx, out, n, r, s);
   }
-  return (int)cudaGetLastError();
+  return trunc ? launch_block<false, true>(xi, w1, q1, w2, e2, sx, out, n, r, s)
+               : launch_block<false, false>(xi, w1, q1, w2, e2, sx, out, n, r, s);
 }

@@ -1,0 +1,175 @@
+"""Weight-only int8 GEMM — the port of ``planer_tpu/ops/pallas/gemm.py``.
+
+``dense_q(x, K, B)`` computes y = x @ dequant(K).T + B for int8 weights
+``K.q`` (N, Kd) with per-output-channel scales, by one of two numerics, as
+the reference does:
+
+  * the kernel branch, where ``tile_plan`` admits the shape (N and Kd
+    multiples of 128, M >= 8, within the reference's VMEM budget): x rounded
+    to bf16, the int8 weights exact in bf16, an f32 sum of exact products,
+    the per-column scale applied to the f32 accumulator, the result cast to
+    x's dtype and the bias added after the cast.  On CUDA tensors this is
+    the hand-written Hopper kernel ``csrc/gemm.cu`` (launches counted in
+    ``LAUNCHES["dense_q"]``); on CPU tensors its plain PyTorch version
+    ``dense_q_plain``;
+  * ``fallback_dense`` everywhere else (the ResNet fc, N = 1000): weights
+    dequantized to x's dtype, f32 accumulation, cast, then the bias.  The
+    reference computes it outside any Pallas kernel, so it stays a
+    ``torch.matmul``.
+
+The gate decides the numerics, so the port takes the kernel branch on
+exactly the shapes where the TPU takes it.  Its tile sizes are TPU tiling
+and the kernel does not use them.
+"""
+from __future__ import annotations
+
+import collections
+import ctypes
+
+import numpy as np
+import torch
+
+from ..qtypes import QTensor
+
+__all__ = ["dense_q", "matmul_q", "tile_plan", "fallback_dense",
+           "dense_q_plain", "dense_q_kernel", "LAUNCHES"]
+
+# kernel launches ("dense_q"); plain-version runs are not counted
+LAUNCHES = collections.Counter()
+
+_VMEM_BUDGET = 12 * 1024 * 1024   # the reference's, part of its gate
+
+
+def tile_plan(M: int, N: int, Kd: int):
+    """The reference's ``_tile_plan``: (bm, bn), or None where the kernel
+    branch is not taken."""
+    if N % 128 or Kd % 128:
+        return None
+    if M < 8:
+        return None
+    bm = 256 if M >= 256 else max(8, 1 << int(np.floor(np.log2(max(M, 1)))))
+    bn = min(256, N)
+    vmem = bm * Kd * 4 + Kd * bn + bm * bn * 4
+    if vmem > _VMEM_BUDGET:
+        return None
+    return bm, bn
+
+
+def fallback_dense(x2d, K: QTensor, B=None):
+    """The reference's ``_fallback_dense``: weights dequantized to x's dtype,
+    f32 accumulation, result cast to x's dtype, bias added after the cast."""
+    Kd = K.dequant(x2d.dtype)
+    # bf16 operands are exact in f32, so an f32 product is the f32-accumulated
+    # bf16 dot (TF32 is off for matmuls by default and in the executor)
+    y = torch.matmul(x2d.float(), Kd.float().t()).to(x2d.dtype)
+    if B is not None:
+        y = y + B.reshape(1, -1).to(y.dtype)
+    return y
+
+
+def dense_q_plain(x2d, q, scale, B=None):
+    """The kernel branch in plain PyTorch: f32(bf16(x)) @ f32(q).T (exact
+    products, f32 sums) times the per-column scale, cast to x's dtype, plus
+    the bias in that dtype.  Refuses to run with TF32 on, which would round
+    the operands."""
+    if x2d.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("dense_q_plain: TF32 matmuls are on")
+    N = q.shape[0]
+    acc = torch.matmul(x2d.to(torch.bfloat16).float(), q.float().t())
+    y = (acc * scale.reshape(1, N).float()).to(x2d.dtype)
+    if B is not None:
+        y = y + B.reshape(1, N).to(x2d.dtype)
+    return y
+
+
+# --------------------------------------------------------------------------
+# kernel wrapper
+# --------------------------------------------------------------------------
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_XDTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _lib():
+    from . import build
+    lib = build.load("gemm")
+    if not getattr(lib, "_planer_typed", False):
+        lib.dense_q.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]
+        lib.dense_q.restype = _I
+        lib._planer_typed = True
+    return lib
+
+
+def _launch(x2d, q, scale, B):
+    """One kernel launch: (M, Kd) x in f32 or bf16, (N, Kd) int8 weights as
+    they are (row n is the k-contiguous column n of the GEMM's B)."""
+    M, Kd = x2d.shape
+    N = q.shape[0]
+    if x2d.data_ptr() % 16:       # 16-byte cp.async rows
+        x2d = x2d.clone()
+    out = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
+    err = _lib().dense_q(x2d.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                         B.data_ptr() if B is not None else None,
+                         out.data_ptr(), M, N, Kd, _XDTYPES[x2d.dtype],
+                         torch.cuda.current_stream(x2d.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"dense_q launch failed: CUDA error {err}")
+    LAUNCHES["dense_q"] += 1
+    return out
+
+
+def dense_q_kernel(x2d, q, scale, B=None):
+    """Kernel wrapper for ``dense_q_plain`` (same arguments and result) on a
+    shape ``tile_plan`` admits.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel."""
+    if x2d.ndim != 2 or q.ndim != 2 or x2d.shape[1] != q.shape[1]:
+        raise ValueError(f"dense_q: x {tuple(x2d.shape)} and weights "
+                         f"{tuple(q.shape)} do not chain")
+    M, Kd = x2d.shape
+    N = q.shape[0]
+    if tile_plan(M, N, Kd) is None:
+        raise ValueError(f"dense_q: ({M}, {N}, {Kd}) is not a kernel shape")
+    if x2d.dtype not in _XDTYPES or q.dtype != torch.int8:
+        raise TypeError(f"dense_q: x {x2d.dtype} and weights {q.dtype}; "
+                        f"the kernel takes f32 or bf16 x and int8 weights")
+    scale = scale.reshape(N)
+    if scale.dtype != torch.float32:
+        raise TypeError(f"dense_q: scale dtype {scale.dtype}")
+    if B is not None:
+        B = B.reshape(N).to(x2d.dtype)
+    dev = x2d.device
+    for name, t in (("weights", q), ("scale", scale), ("bias", B)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"dense_q: {name} on {t.device}, x on {dev}")
+    if dev.type == "cpu":
+        return dense_q_plain(x2d, q, scale, B)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_q: no kernel for {dev}")
+    return _launch(x2d.contiguous(), q.contiguous(), scale.contiguous(),
+                   None if B is None else B.contiguous())
+
+
+# --------------------------------------------------------------------------
+# public ops
+# --------------------------------------------------------------------------
+
+def dense_q(x, K: QTensor, B=None, *, plain=False):
+    """y = x @ dequant(K).T + B;  K.q is (N, Kd) int8, scales (N, 1).  The
+    shape alone picks the numerics (``tile_plan``).  ``plain`` runs the
+    kernel branch's plain version on any device — the reference a caller
+    holds the kernel against; it never happens by itself."""
+    N, Kd = K.q.shape
+    x2d = x.reshape(-1, Kd)
+    if tile_plan(x2d.shape[0], N, Kd) is None:
+        y = fallback_dense(x2d, K, B)
+    elif plain:
+        y = dense_q_plain(x2d, K.q, K.scale, B)
+    else:
+        y = dense_q_kernel(x2d, K.q, K.scale, B)
+    return y.reshape(*x.shape[:-1], N)
+
+
+def matmul_q(x, K: QTensor, *, plain=False):
+    """x @ dequant(K) for (Kd, N)-layout quantized weights."""
+    q = QTensor(K.q.t(), K.scale.reshape(-1, 1))
+    return dense_q(x, q, None, plain=plain)

@@ -6,10 +6,10 @@ Two hand-written Hopper kernels (``csrc/stage64.cu``) run the stage:
   * ``stem_pool_requant`` replaces ``_stage_kernel`` in its stem-only forms:
     7x7/2 s8 conv with int32 accumulation, the 3x3/2 maxpool taken on the
     raw int32 accumulators (-2^30 border), one requant of the pooled plane;
-  * ``basic_block`` replaces ``_block_kernel``: conv3x3 -> fxp requant ->
-    int8 mid plane kept in shared memory -> conv3x3 + residual -> fxp int8
-    out, or, for a last block without ``out_scale``, exact f32 + ReLU ->
-    bf16 out.
+  * ``basic_block`` replaces ``_block_kernel``: conv3x3 -> requant ->
+    int8 mid plane kept in shared memory -> conv3x3 + residual -> int8 out,
+    or, for a last block without ``out_scale``, exact f32 + ReLU -> bf16
+    out.
 
 Beside each kernel sits its plain PyTorch version with the same integer
 arithmetic.  A wrapper runs the plain version only for CPU tensors; for a
@@ -18,9 +18,22 @@ CUDA tensor it launches the kernel or raises, and counts the launch in
 as the JAX package folds them (``_fxp_pack`` and ``_pallas_stage``), so the
 int8 planes are bit-identical to the reference's.
 
-The configuration reproduced is the JAX package's default: SPLIT (one call
-for the stem, one per block) with int32 fixed-point ("fxp") epilogues.  Its
-TPU lane layout (row stride, halos, packed dots) is not part of the
+The module flags are the reference's A/B switches, read at call time, with
+its defaults:
+
+  * ``REQUANT``: "fxp" — int32 fixed-point int8 epilogues — or "trunc" —
+    exact f32 ``acc*f + b`` clipped to [0, 127.99] and truncated;
+  * ``SPLIT``: True — one call for the stem and one per block — or False —
+    the reference's one-call form (``_stage_kernel`` with blocks): the trunc
+    stem, trunc blocks and a bf16 last plane, ignoring ``out_scale``.  That
+    kernel computes the same function as the split trunc chain (the same
+    tables, epilogues and bf16 last plane), and on Hopper one launch cannot
+    hold a stage (a 56x56x64 plane and its mid plane are 400 KB per image,
+    against 227 KB of shared memory), so the port runs it as that chain of
+    launches.  Like the reference it folds the last block's tables with
+    ``out_scale`` all the same (ROADMAP "Faults found").
+
+The TPU lane layout (row stride, halos, packed dots) is not part of the
 contract.  Ineligible geometries fall back to ``decomposed`` and are counted
 in ``FALLOFF``, as in the reference.
 """
@@ -43,9 +56,15 @@ __all__ = ["stage64", "decomposed", "FALLOFF", "LAUNCHES",
 
 # why the fused kernels were skipped, by reason
 FALLOFF = collections.Counter()
-# kernel launches by wrapper: "stem_pool_requant", "basic_block" (int8 out)
-# and "basic_block_last" (bf16 out); plain-version runs are not counted
+# kernel launches by wrapper and form: "stem_pool_requant" (fxp),
+# "stem_pool_requant[bf16]" and "[trunc]"; "basic_block" (int8 out) and
+# "basic_block_last" (bf16 out), with "[trunc]" for the trunc requants;
+# plain-version runs are not counted
 LAUNCHES = collections.Counter()
+
+# the reference's A/B flags (module doc), with its defaults
+SPLIT = True
+REQUANT = "fxp"
 
 _FXP_MMAX = 115
 # pool border sentinel: far below any s8 x s8 K <= 576 accumulator, exact
@@ -145,6 +164,22 @@ def _fxp_q(acc, q, res=None):
     return torch.clamp(v >> s, 0, 127).to(torch.int8)
 
 
+def _affine(acc, f, b):
+    """acc*f + b per channel in f32, the product and the sum each rounded
+    (the kernels' __fmul_rn / __fadd_rn)."""
+    return acc.float() * f.reshape(1, -1, 1, 1) + b.reshape(1, -1, 1, 1)
+
+
+def _block_sum(acc, f, b, res, sx):
+    """(acc*f + b) + res*sx, every step rounded, as the reference reads."""
+    return _affine(acc, f, b) + res.float() * scalar(sx, res)
+
+
+def _trunc_q(v):
+    """clip(v, 0, 127.99) -> int8: float -> int8 conversion truncates."""
+    return torch.clamp(v, 0.0, 127.99).to(torch.int8)
+
+
 def stem_pool_requant_plain(xq, wq, table, mode="fxp"):
     """(N, 3, H, H) int8 codes -> (N, 64, H/4, H/4): 7x7/2 pad-3 s8 conv,
     3x3/2 pad-1 max over the int32 accumulators, then one requant.
@@ -155,27 +190,28 @@ def stem_pool_requant_plain(xq, wq, table, mode="fxp"):
     pooled = _window_max(acc, 3, 3, 2, 2, (1, 1, 1, 1), _NEG)
     if mode == "fxp":
         return _fxp_q(pooled, table).contiguous()
-    f, b = table[0].reshape(1, -1, 1, 1), table[1].reshape(1, -1, 1, 1)
-    v = pooled.float() * f + b
+    v = _affine(pooled, table[0], table[1])
     if mode == "bf16":
         return torch.clamp_min(v, 0.0).to(torch.bfloat16).contiguous()
-    # float -> int8 conversion truncates
-    return torch.clamp(v, 0.0, 127.99).to(torch.int8).contiguous()
+    return _trunc_q(v).contiguous()
 
 
-def basic_block_plain(y, w1, q1, w2, e2, sx=0.0, last=False):
-    """One C=64 basic block on int8 codes (N, 64, R, R): conv3x3 -> fxp
-    requant (ReLU folded into the clip) -> conv3x3 + residual.  ``last``
-    False: e2 is the (64, 4) fxp table with the residual's ``mr`` term, int8
-    out.  ``last`` True: e2 is (2, 64) f32 rows f2, b2 and the plane is
-    exact f32 acc*f2 + b2 + res*sx, ReLU, bf16 out."""
+def basic_block_plain(y, w1, q1, w2, e2, sx=0.0, last=False, trunc=False):
+    """One C=64 basic block on int8 codes (N, 64, R, R): conv3x3 -> requant
+    (ReLU folded into the clip) -> conv3x3 + residual.  The int8 requants
+    are fxp — q1 and, unless ``last``, e2 are (64, 4) int32 tables, e2 with
+    the residual's ``mr`` term — or, with ``trunc``, (2, 64) f32 rows f, b:
+    clip(acc*f + b [+ res*sx], 0, 127.99) truncated.  ``last`` True: e2 is
+    (2, 64) f32 rows f2, b2 and the plane is exact f32 acc*f2 + b2 + res*sx,
+    ReLU, bf16 out."""
     a1 = conv_s8(y, w1, (1, 1), (1, 1, 1, 1))
-    y1 = _fxp_q(a1, q1)
+    y1 = _trunc_q(_affine(a1, q1[0], q1[1])) if trunc else _fxp_q(a1, q1)
     a2 = conv_s8(y1, w2, (1, 1), (1, 1, 1, 1))
-    if not last:
+    if not (last or trunc):
         return _fxp_q(a2, e2, res=y).contiguous()
-    f2, b2 = e2[0].reshape(1, -1, 1, 1), e2[1].reshape(1, -1, 1, 1)
-    v = a2.float() * f2 + b2 + y.float() * scalar(sx, y)
+    v = _block_sum(a2, e2[0], e2[1], y, sx)
+    if not last:
+        return _trunc_q(v).contiguous()
     return torch.clamp_min(v, 0.0).to(torch.bfloat16).contiguous()
 
 
@@ -193,7 +229,7 @@ def _lib():
         lib.stem_pool_requant.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _VP]
         lib.stem_pool_requant.restype = _I
         lib.basic_block.argtypes = [_VP, _VP, _VP, _VP, _VP, _F, _VP, _I,
-                                    _I, _I, _VP]
+                                    _I, _I, _I, _VP]
         lib.basic_block.restype = _I
         lib._planer_typed = True
     return lib
@@ -213,8 +249,8 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _table_spec(mode):
@@ -246,28 +282,29 @@ def stem_pool_requant(xq, wq, table, mode="fxp"):
     out = torch.empty((n, 64, h // 4, h // 4), dtype=odt, device=dev)
     err = _lib().stem_pool_requant(xq.data_ptr(), w148.data_ptr(),
                                    table.data_ptr(), out.data_ptr(), n, h,
-                                   STEM_MODES[mode], _stream())
+                                   STEM_MODES[mode], _stream(xq))
     if err:
         raise RuntimeError(f"stem_pool_requant launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["stem_pool_requant"] += 1
+    LAUNCHES["stem_pool_requant" + ("" if mode == "fxp" else f"[{mode}]")] += 1
     return out
 
 
-def basic_block(y, w1, q1, w2, e2, sx=0.0, last=False):
+def basic_block(y, w1, q1, w2, e2, sx=0.0, last=False, trunc=False):
     """Kernel wrapper for ``basic_block_plain`` (same arguments).
     CPU tensors run the plain version; CUDA tensors launch the kernel."""
     if y.ndim != 4 or y.shape[1] != 64 or y.shape[2] != y.shape[3]:
         raise ValueError(f"block input shape {tuple(y.shape)} unsupported")
     dev = y.device
-    edt, eshape = _table_spec("bf16" if last else "fxp")
+    qdt, qshape = _table_spec("trunc" if trunc else "fxp")
+    edt, eshape = _table_spec("trunc" if (last or trunc) else "fxp")
     _check(y, "y", torch.int8, y.shape, dev)
     _check(w1, "w1", torch.int8, (64, 64, 3, 3), dev)
     _check(w2, "w2", torch.int8, (64, 64, 3, 3), dev)
-    _check(q1, "q1", torch.int32, (64, 4), dev)
+    _check(q1, "q1", qdt, qshape, dev)
     _check(e2, "e2", edt, eshape, dev)
     if dev.type == "cpu":
-        return basic_block_plain(y, w1, q1, w2, e2, sx, last)
+        return basic_block_plain(y, w1, q1, w2, e2, sx, last, trunc)
     if dev.type != "cuda":
         raise ValueError(f"basic_block: no kernel for {dev}")
     n, _, r, _ = y.shape
@@ -279,10 +316,12 @@ def basic_block(y, w1, q1, w2, e2, sx=0.0, last=False):
                       device=dev)
     err = _lib().basic_block(y.data_ptr(), w1p.data_ptr(), q1.data_ptr(),
                              w2p.data_ptr(), e2.data_ptr(), float(sx),
-                             out.data_ptr(), n, r, int(bool(last)), _stream())
+                             out.data_ptr(), n, r, int(bool(last)),
+                             int(bool(trunc)), _stream(y))
     if err:
         raise RuntimeError(f"basic_block launch failed: CUDA error {err}")
-    LAUNCHES["basic_block_last" if last else "basic_block"] += 1
+    LAUNCHES[("basic_block_last" if last else "basic_block")
+             + ("[trunc]" if trunc else "")] += 1
     return out
 
 
@@ -298,6 +337,7 @@ class _Block:
     e2: torch.Tensor
     sx: float
     last: bool
+    trunc: bool
 
 
 @dataclasses.dataclass
@@ -315,13 +355,16 @@ def _np32(v):
         else np.asarray(v, np.float32)
 
 
-def _fold(Ws, Bs, blocks, out_scale, device):
+def _fold(Ws, Bs, blocks, out_scale, device, requant="fxp", split=True):
     """Fold every requant scale on the host.  The arithmetic follows the
     reference step by step: float32 products with each Python scalar rounded
     to float32 once, then ``_fxp_pack`` in float64.  Biases arrive as the
     program passes them (bf16-rounded in a bf16 program), so the fxp B terms
-    match the reference's."""
+    match the reference's.  ``requant`` and ``split`` are the module flags
+    (module doc); a stage without blocks has one form whatever they say."""
     f32 = np.float32
+    one_call = bool(blocks) and not split
+    trunc = bool(blocks) and (requant == "trunc" or one_call)
 
     def bias(Bw):
         return (np.zeros((64,), np.float32) if Bw is None
@@ -340,12 +383,14 @@ def _fold(Ws, Bs, blocks, out_scale, device):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
 
-    if blocks:
+    def rows(f, b):
+        return dev(np.stack([f.reshape(-1), b.reshape(-1)]), torch.float32)
+
+    if blocks and not trunc:
         stem_mode, stem_table = "fxp", dev(_fxp_pack(f_s, b_s), torch.int32)
     else:
-        stem_mode = "trunc" if out_scale else "bf16"
-        stem_table = dev(np.stack([f_s.reshape(-1), b_s.reshape(-1)]),
-                         torch.float32)
+        stem_mode = "trunc" if (blocks or out_scale) else "bf16"
+        stem_table = rows(f_s, b_s)
     plan_blocks = []
     for bi, (W1, B1, W2, B2) in enumerate(blocks):
         sx_in = float(W1.act_scale)
@@ -359,14 +404,15 @@ def _fold(Ws, Bs, blocks, out_scale, device):
         quant_out = (not last) or bool(out_scale)
         b2 = bias(B2) * f32(inv_out) + f32(0.5 if quant_out else 0.0)
         sx = sx_in * inv_out
-        # with out_scale the final block keeps the quantizing fxp epilogue
-        flast = last and not out_scale
-        e2 = (dev(np.stack([f2.reshape(-1), b2.reshape(-1)]), torch.float32)
-              if flast else dev(_fxp_pack(f2, b2, sx=sx), torch.int32))
-        plan_blocks.append(_Block(W1.q, dev(_fxp_pack(f1, b1), torch.int32),
-                                  W2.q, e2, sx, flast))
+        # with out_scale the final block keeps the quantizing epilogue,
+        # except in the one-call form, whose last plane is always bf16
+        flast = last and (one_call or not out_scale)
+        q1 = rows(f1, b1) if trunc else dev(_fxp_pack(f1, b1), torch.int32)
+        e2 = (rows(f2, b2) if (flast or trunc)
+              else dev(_fxp_pack(f2, b2, sx=sx), torch.int32))
+        plan_blocks.append(_Block(W1.q, q1, W2.q, e2, sx, flast, trunc))
     return _Plan(s_in, Ws.q, stem_mode, stem_table, plan_blocks,
-                 bool(out_scale))
+                 bool(out_scale) and not one_call)
 
 
 def _run(x, plan, plain=False):
@@ -375,7 +421,7 @@ def _run(x, plan, plain=False):
     y = stem(stem_prologue(x, plan.s_in), plan.ws, plan.stem_table,
              plan.stem_mode)
     for b in plan.blocks:
-        y = block(y, b.w1, b.q1, b.w2, b.e2, b.sx, b.last)
+        y = block(y, b.w1, b.q1, b.w2, b.e2, b.sx, b.last, b.trunc)
     return y if plan.out_int8 else y.to(x.dtype)
 
 
@@ -404,20 +450,24 @@ def stage64(x, Ws, Bs, *bw, out_scale=None, force_decomposed=False,
             cache=None, plain=False):
     """Fused ResNet entry stage.  Positional inputs: x, stem W, stem B, then
     (W1, B1, W2, B2) per block.  ``out_scale`` makes the stage emit int8
-    codes at that scale; the decomposed fallback ignores it and emits float.
-    ``cache`` (a dict owned by the caller) keeps the folded tables between
-    calls with the same weights.  ``plain`` runs the kernels' plain versions
-    on any device — the reference a caller holds the kernels against, as
-    the JAX package's ``interpret`` flag is; it never happens by itself."""
+    codes at that scale; the decomposed fallback and the one-call form
+    (``SPLIT = False``) ignore it and emit float.  ``cache`` (a dict owned
+    by the caller) keeps the folded tables between calls with the same
+    weights.  ``plain`` runs the kernels' plain versions on any device —
+    the reference a caller holds the kernels against, as the JAX package's
+    ``interpret`` flag is; it never happens by itself."""
     if force_decomposed:
         return decomposed(x, Ws, Bs, *bw)
+    if REQUANT not in ("fxp", "trunc"):
+        raise ValueError(f"stage64: unknown REQUANT {REQUANT!r}")
     if _eligible(x, Ws, bw) is None:
         return decomposed(x, Ws, Bs, *bw)
-    key = (out_scale, x.device)
+    key = (out_scale, x.device, REQUANT, bool(SPLIT))
     plan = cache.get(key) if cache is not None else None
     if plan is None:
         blocks = [tuple(bw[i:i + 4]) for i in range(0, len(bw), 4)]
-        plan = _fold(Ws, Bs, blocks, out_scale, x.device)
+        plan = _fold(Ws, Bs, blocks, out_scale, x.device, REQUANT,
+                     bool(SPLIT))
         if cache is not None:
             cache[key] = plan
     return _run(x, plan, plain)

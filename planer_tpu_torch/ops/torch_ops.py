@@ -1,5 +1,5 @@
 """PyTorch op library — the port's counterpart of ``planer_tpu/ops/jax_ops.py``
-for the ops on the INT8 ResNet-18 main path.
+for the ops on the INT8 ResNet-18 main path and the weight-only ResNet-50.
 
 Each function takes and returns NCHW tensors on one device.  The precision
 branches of ``conv2d`` and the code-domain ``add`` reproduce the JAX
@@ -15,7 +15,10 @@ package's numerics, not just its math:
   * s8 x s8 convs accumulate exactly in int32 (``torch._int_mm`` over an
     im2col): |acc| reaches 127^2 * 4608 > 2^24, past float32's exact range;
   * dequant is ``acc.float() * (sx * w_scale)`` with the scale product taken
-    first, cast to the output dtype, and the bias added after the cast.
+    first, cast to the output dtype, and the bias added after the cast;
+  * a quantized ``dense``, and with ``_PALLAS_CONV1X1`` a weight-only 1x1
+    conv, go through ``ops/kernels/gemm.dense_q``, which picks the numerics
+    of the reference's kernel branch or of its fallback by shape.
 
 Shape-like operands (reshape targets) may arrive as numpy arrays or host
 tensors folded by the program's static pass.
@@ -35,6 +38,11 @@ __all__ = ["conv2d", "dense", "maxpool", "global_average_pool", "relu",
            "add", "batchnorm", "flatten", "reshape", "stage64", "stagen",
            "return_",
            "conv_s8", "quantize", "scalar", "to_dtype"]
+
+
+# opt-in, as in the JAX package (jax_ops._PALLAS_CONV1X1): route quantized
+# 1x1 stride-1 ungrouped convs that reach no s8 path to the dense_q GEMM
+_PALLAS_CONV1X1 = False
 
 
 # --------------------------------------------------------------------------
@@ -159,18 +167,22 @@ def _conv_w8a8(x, K, B, strides, dilations, pads, pre_quantized=False,
 
 def conv2d(x, K, B=None, group=1, strides=(1, 1), dilations=(1, 1),
            pads=(0, 0, 0, 0), auto_pad=None, out_scale=None,
-           compute_dtype=None):
+           compute_dtype=None, plain=False):
     """2-D convolution with optional int8 activation-code emission
-    (``out_scale``: re-emit the output as codes at that scale)."""
+    (``out_scale``: re-emit the output as codes at that scale).  ``plain``
+    (an op override) runs the dense_q GEMM of the 1x1 route on its plain
+    version on any device."""
     out = _conv2d(x, K, B, group=group, strides=strides, dilations=dilations,
-                  pads=pads, auto_pad=auto_pad, compute_dtype=compute_dtype)
+                  pads=pads, auto_pad=auto_pad, compute_dtype=compute_dtype,
+                  plain=plain)
     if out_scale is None:
         return out
     return quantize(out, out_scale)
 
 
 def _conv2d(x, K, B=None, group=1, strides=(1, 1), dilations=(1, 1),
-            pads=(0, 0, 0, 0), auto_pad=None, compute_dtype=None):
+            pads=(0, 0, 0, 0), auto_pad=None, compute_dtype=None,
+            plain=False):
     kshape = tuple(K.shape)
     strides = (1, 1) if strides is None else tuple(int(s) for s in strides)
     dilations = (1, 1) if dilations is None else tuple(int(d) for d in dilations)
@@ -212,6 +224,19 @@ def _conv2d(x, K, B=None, group=1, strides=(1, 1), dilations=(1, 1),
             # the JAX package's output-row-stacked W8A8 form: the same exact
             # int32 sums and per-channel dequant in another TPU lane layout
             return _conv_w8a8(x, K, B, strides, dilations, pads)
+        # the JAX package's opt-in 1x1 route: a 1x1 stride-1 ungrouped conv
+        # is a GEMM over (N*H*W, C), handed to dense_q (kernel branch where
+        # the shape tiles, its fallback's numerics elsewhere)
+        if (_PALLAS_CONV1X1 and K.q.ndim == 4
+                and tuple(K.q.shape[2:]) == (1, 1) and int(group) == 1
+                and strides == (1, 1) and pads == (0, 0, 0, 0)):
+            from .kernels import gemm
+            n, c, h, w = x.shape
+            o = K.q.shape[0]
+            xm = x.permute(0, 2, 3, 1).reshape(-1, c)      # (NHW, C)
+            kq = QTensor(K.q.reshape(o, c), K.scale.reshape(o, 1))
+            y = gemm.dense_q(xm, kq, B, plain=plain)
+            return y.reshape(n, h, w, o).permute(0, 3, 1, 2)
         K = K.dequant(x.dtype)
     pt, pl, pb, pr = pads
     if (pt, pl) == (pb, pr):
@@ -229,15 +254,17 @@ def _conv2d(x, K, B=None, group=1, strides=(1, 1), dilations=(1, 1),
 # dense / pool
 # --------------------------------------------------------------------------
 
-def dense(x, K, B=None, shp=None):
-    """y = x @ K.T + B.  A quantized K takes the numerics of the JAX
-    package's weight-only fallback (gemm._fallback_dense, the branch the
-    ResNet fc takes): weights dequantized to x's dtype, f32 accumulation,
-    result cast to x's dtype, bias added after the cast."""
-    Kd = K.dequant(x.dtype) if isinstance(K, QTensor) else K.to(x.dtype)
+def dense(x, K, B=None, shp=None, plain=False):
+    """y = x @ K.T + B.  A quantized K goes through ``gemm.dense_q``, as in
+    the JAX package: its kernel branch where the shape tiles, its fallback's
+    numerics elsewhere (the ResNet fc).  ``plain`` (an op override) runs the
+    kernel branch's plain version on any device."""
+    if isinstance(K, QTensor):
+        from .kernels import gemm
+        return gemm.dense_q(x, K, B, plain=plain)
     # bf16 operands are exact in f32, so an f32 product is the f32-accumulated
     # bf16 dot (TF32 is off for matmuls by default and in the executor)
-    y = torch.matmul(x.float(), Kd.float().t()).to(x.dtype)
+    y = torch.matmul(x.float(), K.to(x.dtype).float().t()).to(x.dtype)
     if B is not None:
         y = y + B.reshape(1, -1).to(y.dtype)
     return y

@@ -14,7 +14,10 @@ the INT8 ResNet-18 main path, the fused body stage ``stagen`` and
 ``static_args`` and ``data_dependent`` mean what they mean in the JAX
 package: shape operands that must be host values, ops whose output shape
 depends on values.  ``cached`` ops get a per-application ``cache`` dict
-from the program.
+from the program.  ``conv``, ``dense``, ``stage64`` and ``stagen`` take
+``plain=True`` as an op override (``Program.op_overrides``): the program
+then runs their kernels' plain versions on any device, the reference the
+kernels are held against.
 """
 from __future__ import annotations
 

@@ -141,7 +141,8 @@ class Program:
     override how a params leaf is turned into what an op consumes;
     ``param_transform`` turns the raw weights into params (e.g. QTensors).
     ``op_overrides`` injects per-opcode kwargs, e.g.
-    ``{"stage64": {"force_decomposed": True}}``.
+    ``{"stage64": {"force_decomposed": True}}`` or ``{"conv": {"plain":
+    True}}`` (the kernels' plain versions, see the registry).
     """
 
     def __init__(self, graph: Graph, weights: list,

@@ -13,6 +13,8 @@ import torch
 
 import planer_tpu_torch as pt
 from planer_tpu_torch import models
+from planer_tpu_torch.ops.kernels import build
+from planer_tpu_torch.ops.kernels import gemm as tg
 from planer_tpu_torch.ops.kernels import stage64 as st
 from planer_tpu_torch.ops.kernels import stagen as sg
 from planer_tpu_torch.ops.qtypes import QTensor
@@ -60,6 +62,7 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, planer_tpu_torch, chip_smoke\n"
             "import planer_tpu_torch.ops.kernels.stage64\n"
             "import planer_tpu_torch.ops.kernels.stagen\n"
+            "import planer_tpu_torch.ops.kernels.gemm\n"
             "import planer_tpu_torch.ops.kernels.build\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
@@ -200,3 +203,56 @@ def test_stagen_opcode_oracle_runs_decomposed_chain():
     sg.FALLOFF.clear()
     fused = spec.fn(x, *w, blocks=blocks, cache={})
     assert not sg.FALLOFF and fused.shape == y.shape
+
+
+def _gemm_args(device="cpu", m=8, n=128, kd=128):
+    rng = np.random.default_rng(3)
+    t = lambda a: torch.as_tensor(a, device=device)
+    x = t(rng.standard_normal((m, kd)).astype(np.float32)).to(torch.bfloat16)
+    q = t(rng.integers(-127, 128, (n, kd), dtype=np.int8))
+    s = t(((0.5 + rng.random((n, 1))) / 256.0).astype(np.float32))
+    return x, q, s
+
+
+def test_gemm_wrapper_runs_plain_version_on_cpu_only():
+    tg.LAUNCHES.clear()
+    x, q, s = _gemm_args()
+    out = tg.dense_q_kernel(x, q, s)
+    assert torch.equal(out, tg.dense_q_plain(x, q, s))
+    assert out.dtype == torch.bfloat16 and not tg.LAUNCHES
+    with pytest.raises(TypeError):                      # int8 weights only
+        tg.dense_q_kernel(x, q.float(), s)
+    with pytest.raises(ValueError):                     # not a kernel shape
+        tg.dense_q_kernel(x[:7], q, s)
+    with pytest.raises(ValueError, match="no kernel"):
+        tg.dense_q_kernel(*(a.to("meta") for a in (x, q, s)))
+    with pytest.raises(ValueError):                     # mixed devices
+        tg.dense_q_kernel(x.to("meta"), q, s)
+
+
+def test_gemm_kernel_failures_raise_instead_of_falling_back(monkeypatch):
+    """The CUDA branch has no fallback: a build that fails (no nvcc here)
+    and a launch that returns a CUDA error both raise, and neither counts a
+    launch; the gate alone picks the fallback numerics."""
+    tg.LAUNCHES.clear()
+    x, q, s = _gemm_args()
+    monkeypatch.setattr(build, "_LIBS", {})
+    monkeypatch.setattr(build, "_lib_path", lambda name: build._build_dir()
+                        / f"lib{name}-missing-for-test.so")
+    monkeypatch.setattr(build, "_nvcc", lambda: (_ for _ in ()).throw(
+        RuntimeError("nvcc not found")))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tg._launch(x, q, s.reshape(-1), None)
+
+    class Lib:
+        class dense_q:                                  # noqa: N801
+            def __new__(cls, *a):
+                return 700                              # illegal address
+    monkeypatch.setattr(tg, "_lib", lambda: Lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        tg._launch(x, q, s.reshape(-1), None)
+    assert not tg.LAUNCHES
+    src = open(tg.__file__).read()
+    assert "try:" not in src and "except" not in src

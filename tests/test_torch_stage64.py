@@ -202,3 +202,151 @@ def test_falloff_and_geometry_match_reference():
     assert y.shape == (1, 64, 13, 13) and y.dtype == torch.float32
     assert sum(tst.FALLOFF.values()) == 1 and tst.FALLOFF["geometry"] == 1
     tst.FALLOFF.clear()
+
+
+# ------------------------------------- the REQUANT="trunc" and one-call forms
+
+def _fma_affine(acc, f, b):
+    """acc*f + b with one rounding, as an FMA computes it (the product is
+    exact in float64)."""
+    return (acc.double() * f.double().reshape(1, -1, 1, 1)
+            + b.double().reshape(1, -1, 1, 1)).float()
+
+
+def _fma_block_sum(acc, f, b, res, sx):
+    """fma(res, sx, fma(acc, f, b)): the block sum as the interpret run
+    contracts it."""
+    t = _fma_affine(acc, f, b).double()
+    return (t + res.double() * float(np.float32(sx))).float()
+
+
+def _set_flags(mp, split, requant):
+    for mod in (jst, tst):
+        mp.setattr(mod, "SPLIT", split)
+        mp.setattr(mod, "REQUANT", requant)
+
+
+def _port(x, ws, bs, blocks, out_scale, dtype, fma=False):
+    """The port's stage (plain versions on the CPU); with ``fma`` the
+    epilogues contracted as the interpret run contracts them."""
+    with pytest.MonkeyPatch.context() as mp:
+        if fma:
+            mp.setattr(tst, "_affine", _fma_affine)
+            mp.setattr(tst, "_block_sum", _fma_block_sum)
+        out = tst.stage64(torch.as_tensor(x).to(getattr(torch, dtype)),
+                          *_torch_args(ws, bs, blocks), out_scale=out_scale)
+    return out.float().numpy(), out.dtype
+
+
+def _check_against_reference(x, ws, bs, blocks, out_scale, dtype, label):
+    """int8 planes bit-exact and the bf16 last plane within one bf16 ulp of
+    the interpret run once the port replays its FMA contractions; the
+    port's own arithmetic (product and sum rounded apart, the CUDA kernel's)
+    is printed beside it.  Returns the output dtype."""
+    args = _jax_args(ws, bs, blocks)
+    ref = jax.jit(lambda v: jst.stage64(v, *args, out_scale=out_scale,
+                                        interpret=True))(
+        jnp.asarray(x).astype(dtype))
+    ref = np.asarray(ref.astype(jnp.float32))
+    out, odt = _port(x, ws, bs, blocks, out_scale, dtype)
+    rep, _ = _port(x, ws, bs, blocks, out_scale, dtype, fma=True)
+    assert out.shape == ref.shape == (x.shape[0], 64, x.shape[2] // 4,
+                                      x.shape[3] // 4)
+    if odt == torch.int8:
+        np.testing.assert_array_equal(rep, ref)
+        assert 0 < (ref != 0).mean() < 1
+    else:
+        assert (np.abs(rep - ref) <= _fma_bound(ref)).all()
+        assert (ref > 0).mean() > 0.2
+    print(f"{label}: {int((out != ref).sum())} of {ref.size} elements differ "
+          f"without the FMA replay, {int((rep != ref).sum())} with it")
+    return odt
+
+
+@pytest.mark.parametrize("out_scale", [None, 0.11])
+@pytest.mark.parametrize("size,batch,dtype", [CASES[1], CASES[3]])
+def test_trunc_form_matches_interpret_run(size, batch, dtype, out_scale,
+                                          monkeypatch):
+    """REQUANT = "trunc": trunc stem, trunc blocks (stage64.py:627-629,
+    :644-648) and, without out_scale, the exact-f32 bf16 last plane."""
+    _set_flags(monkeypatch, True, "trunc")
+    rng = np.random.default_rng(13 + size + batch)
+    x, ws, bs, blocks = _inputs(rng, size, batch)
+    odt = _check_against_reference(x, ws, bs, blocks, out_scale, dtype,
+                                   f"trunc out_scale={out_scale}")
+    assert odt == (torch.int8 if out_scale else getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("out_scale", [None, 0.11])
+@pytest.mark.parametrize("size,batch,dtype", [CASES[1], CASES[3]])
+def test_one_call_form_matches_interpret_run(size, batch, dtype, out_scale,
+                                             monkeypatch):
+    """SPLIT = False: the reference's one-call kernel, which ignores
+    out_scale for the output (bf16, cast to x's dtype) but folds the last
+    block's tables with it; the port runs the same function as its trunc
+    chain."""
+    _set_flags(monkeypatch, False, "fxp")
+    rng = np.random.default_rng(17 + size + batch)
+    x, ws, bs, blocks = _inputs(rng, size, batch)
+    odt = _check_against_reference(x, ws, bs, blocks, out_scale, dtype,
+                                   f"one-call out_scale={out_scale}")
+    assert odt == getattr(torch, dtype)
+
+
+@pytest.mark.parametrize("requant", ["fxp", "trunc"])
+def test_reference_one_call_equals_split_trunc(requant, monkeypatch):
+    """On the JAX side the one-call kernel and the split trunc chain compute
+    the same function without out_scale, bit for bit (whatever REQUANT says:
+    the one-call kernel has trunc epilogues only); with out_scale they part
+    (bf16 in the out_scale code domain vs int8 codes)."""
+    rng = np.random.default_rng(19)
+    x, ws, bs, blocks = _inputs(rng, 64, 2)
+    args = _jax_args(ws, bs, blocks)
+    outs = {}
+    for split, rq in ((False, requant), (True, "trunc")):
+        for out_scale in (None, 0.11):
+            _set_flags(monkeypatch, split, rq)
+            y = jax.jit(lambda v: jst.stage64(v, *args, out_scale=out_scale,
+                                              interpret=True))(jnp.asarray(x))
+            outs[split, out_scale] = np.asarray(y.astype(jnp.float32)), y.dtype
+    (mega, mdt), (split, sdt) = outs[False, None], outs[True, None]
+    assert mdt == sdt == jnp.float32
+    np.testing.assert_array_equal(mega, split)
+    (mega_q, mqdt), (split_q, sqdt) = outs[False, 0.11], outs[True, 0.11]
+    assert mqdt == jnp.float32 and sqdt == jnp.int8
+    # the one-call output is the unclipped plane in out_scale's code domain
+    # (+0.5 folded for truncation), rounded to bf16: the split chain's codes
+    # are its floor, clipped at 127
+    low = mega_q < 127
+    print(f"one-call with out_scale: max {mega_q.max()}, "
+          f"{float((~low).mean()):.3f} of elements >= 127")
+    assert np.abs(mega_q - 0.5 - split_q)[low].max() <= 0.75
+    assert (split_q[mega_q >= 128] == 127).all() and (~low).any()
+
+
+def test_trunc_block_wrapper_tables(monkeypatch):
+    """The trunc block takes f32 (2, 64) tables for both requants; the
+    wrapper refuses fxp tables in that form and counts nothing on the
+    CPU."""
+    _set_flags(monkeypatch, True, "trunc")
+    rng = np.random.default_rng(23)
+    x, ws, bs, blocks = _inputs(rng, 64, 1)
+    args = _torch_args(ws, bs, blocks)
+    bw = [tuple(args[2 + i:6 + i]) for i in range(0, len(args) - 2, 4)]
+    plan = tst._fold(args[0], args[1], bw, None, torch.device("cpu"),
+                     "trunc", True)
+    assert plan.stem_mode == "trunc"
+    b0, b1 = plan.blocks
+    assert (b0.trunc, b0.last, b1.trunc, b1.last) == (True, False, True, True)
+    for t in (b0.q1, b0.e2, b1.q1, b1.e2):
+        assert t.dtype == torch.float32 and tuple(t.shape) == (2, 64)
+    y = torch.as_tensor(rng.integers(0, 128, (1, 64, 16, 16), dtype=np.int8))
+    tst.LAUNCHES.clear()
+    out = tst.basic_block(y, b0.w1, b0.q1, b0.w2, b0.e2, b0.sx, False, True)
+    assert torch.equal(out, tst.basic_block_plain(
+        y, b0.w1, b0.q1, b0.w2, b0.e2, b0.sx, False, True))
+    assert out.dtype == torch.int8 and not tst.LAUNCHES
+    fxp = tst._fold(args[0], args[1], bw, None, torch.device("cpu"))
+    with pytest.raises(TypeError):
+        tst.basic_block(y, b0.w1, fxp.blocks[0].q1, b0.w2, b0.e2, b0.sx,
+                        False, True)
