@@ -47,18 +47,30 @@
    compute) with ``torch_ops._PALLAS_CONV1X1`` on: batch 1, 8 and 64, exactly
    26 dense_q launches per forward and none of stage64 or stagen, the
    program against itself on the plain versions and against the float32
-   executor; step times with the route on and off, in turns (printed, no
-   claim);
+   executor; printed, not gated: the gap to the unquantized float model
+   (the int8 quantization error) and the step times with the route on and
+   off, in turns;
 9. path 5: the main path's ResNet-18 under ``stage64.REQUANT = "trunc"``
    and under ``stage64.SPLIT = False``: batch 1 and 64, 1 stem and 2 block
    launches per forward in the trunc forms, ``FALLOFF`` empty, the plain leg
    bit-identical and the float32-executor leg.  The trunc block kernel is
-   held against its plain version in phase 2.
+   held against its plain version in phase 2;
+10. the dense_q kernel phase again with float8_e4m3fn weights (the calls
+   and bounds of phase 7), plus one call whose weight bytes enumerate all
+   254 finite e4m3 codes against an identity x, which must give the
+   decoded weights exactly; then path 6: weight-only FP8 ResNet-50 at 224
+   (``quantize("fp8")``, bf16 compute) with the 1x1 route on: batch 1, 8
+   and 64, exactly 26
+   ``dense_q[fp8]`` launches per forward and no other hand-kernel launch,
+   the program against itself on the plain versions (p99 <= 0.02) and
+   against the float32 executor on the same decoded weights (p99 <= 0.05,
+   argmax 1.0); printed, not gated: the gap to the unquantized float model
+   (the fp8 quantization error itself) and the step times.
 
 ``python3 chip_smoke.py --profile DIR`` adds a torch.profiler pass over the
-steps of the main path, of both ResNet-50 programs of path 2 and of path 4:
-the device's busy share and time by kernel, with the full tables written to
-``DIR/profile_<program>_b<batch>.txt``.
+steps of the main path, of both ResNet-50 programs of path 2 and of paths 4
+and 6: the device's busy share and time by kernel, with the full tables
+written to ``DIR/profile_<program>_b<batch>.txt``.
 
 Every failure raises and exits non-zero.  The line before the last is one
 JSON object with each kernel's numbers; the last line is
@@ -324,19 +336,29 @@ def gemm_bound(out, ref, bias):
     return ok, float(d.max()), float((d > 0).float().mean()), note
 
 
-def gemm_phase(torch, tg):
+def gemm_phase(torch, tg, form="int8"):
     """dense_q against its plain version at path 4's shapes (batch 1 and 64)
-    and three more calls; times at batch 64.  Returns per-shape rows."""
+    and three more calls, with int8 or (``form="fp8"``) float8_e4m3fn
+    weights; times at batch 64.  Returns per-shape rows."""
+    from planer_tpu_torch.ops import fp8
     if torch.backends.cuda.matmul.allow_tf32:
         raise SystemExit("TF32 matmuls are on: the plain version would round")
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
+    key = "dense_q" if form == "int8" else f"dense_q[{form}]"
 
     def weights(n, kd):
-        q = torch.as_tensor(rng.integers(-127, 128, (n, kd), dtype=np.int8),
-                            device=dev)
-        s = torch.as_tensor(((0.5 + rng.random((n, 1))) * 0.05 / 127.0
-                             ).astype(np.float32), device=dev)
+        if form == "int8":
+            q = torch.as_tensor(rng.integers(-127, 128, (n, kd),
+                                             dtype=np.int8), device=dev)
+            s = torch.as_tensor(((0.5 + rng.random((n, 1))) * 0.05 / 127.0
+                                 ).astype(np.float32), device=dev)
+        else:      # as quantize_net makes them: absmax / 448 per row
+            w = (rng.standard_normal((n, kd)) * (0.5 + rng.random((n, 1)))
+                 * 0.05).astype(np.float32)
+            s = (np.abs(w).max(1, keepdims=True) / fp8.MAX).astype(np.float32)
+            q = fp8.to_tensor(fp8.encode(w / s)).to(dev)
+            s = torch.as_tensor(s, device=dev)
         b = torch.as_tensor((rng.standard_normal(n) * 0.1).astype(np.float32),
                             device=dev)
         return q, s, b
@@ -366,17 +388,17 @@ def gemm_phase(torch, tg):
         else:
             run = lambda: tg.dense_q_kernel(x, q, s, B)      # noqa: E731
             plain = lambda: tg.dense_q_plain(x, q, s, B)     # noqa: E731
-        before = tg.LAUNCHES["dense_q"]
+        before = tg.LAUNCHES[key]
         out = run()
         torch.cuda.synchronize()
-        if tg.LAUNCHES["dense_q"] != before + 1:
-            raise SystemExit(f"dense_q {name}: the kernel did not launch")
+        if tg.LAUNCHES[key] != before + 1:
+            raise SystemExit(f"{key} {name}: the kernel did not launch")
         ref = plain()
         ok, err, share, over = gemm_bound(out, ref, B)
-        log(f"kernel dense_q[{name}] {dt}: max_abs_err {err} differing "
+        log(f"kernel {key}[{name}] {dt}: max_abs_err {err} differing "
             f"{share:.3g}, {over} -> {'ok' if ok else 'MISMATCH'}")
         if not ok or out.shape != ref.shape or out.dtype != ref.dtype:
-            raise SystemExit(f"kernel dense_q[{name}] disagrees with its "
+            raise SystemExit(f"kernel {key}[{name}] disagrees with its "
                              f"plain version")
         if not cnt:
             continue
@@ -389,12 +411,64 @@ def gemm_phase(torch, tg):
                "neighbour_ms": cuda_ms(lambda: torch.mm(x, wdq.t()), 20),
                "bound_ms": b_ms, "bound_by": by, "bytes": nbytes, "ops": ops}
         rows.append(row)
-        log(f"  dense_q[{name}] b64: kernel {row['ms']:.4f} ms, plain "
+        log(f"  {key}[{name}] b64: kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f}, bound {b_ms:.4f} by {by} "
             f"({ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), neighbour "
             f"(cuBLAS torch.mm, no scale or bias) {row['neighbour_ms']:.4f} ms")
+    if form == "fp8":
+        all_codes(torch, tg, fp8, dev)
     tg.LAUNCHES.clear()
     return rows
+
+
+def all_codes(torch, tg, fp8, dev):
+    """The e4m3 decode, exactly: weight bytes that enumerate the 254 finite
+    codes, unit scales and an f32 identity x, so the kernel's output is its
+    decoded weights (one exact product per sum), against the host codec's
+    table, and against the plain version."""
+    codes = np.array([c for c in range(256) if c & 0x7F != 0x7F], np.uint8)
+    qb = np.resize(codes, (128, 256))
+    q = fp8.to_tensor(qb).to(dev)
+    s = torch.ones(128, 1, device=dev)
+    x = torch.eye(256, device=dev)
+    out = tg.dense_q_kernel(x, q, s)
+    torch.cuda.synchronize()
+    want = torch.as_tensor(fp8.decode(qb), device=dev).t()
+    exact = torch.equal(out, want)
+    ok, err, _, _ = gemm_bound(out, tg.dense_q_plain(x, q, s), None)
+    log(f"kernel dense_q[fp8][all 254 finite codes, identity x]: "
+        f"{'equal to the decoded codes' if exact else 'MISMATCH'}, "
+        f"max_abs_err vs plain {err}")
+    if not (exact and ok):
+        raise SystemExit("kernel dense_q[fp8] decodes e4m3 wrongly")
+
+
+def gemm_row(name, grows, launches, forwards, path):
+    """The kernels-line row of a dense_q form: path 4's or 6's 26 launches
+    of one b64 forward, summed over the shapes."""
+    per_fwd = {k: sum(r[k] * r["per_forward"] for r in grows)
+               for k in ("ms", "plain_ms", "neighbour_ms", "bound_ms")}
+    log(f"{name} per b64 forward (26 launches): {per_fwd['ms']:.4f} ms "
+        f"(plain {per_fwd['plain_ms']:.4f}, bound {per_fwd['bound_ms']:.4f}, "
+        f"torch.mm neighbour {per_fwd['neighbour_ms']:.4f}); "
+        f"{sum(r['ops'] * r['per_forward'] for r in grows) / 1e9:.1f} GFLOP")
+    return {
+        "name": name, "route": "cuda",
+        "source": "planer_tpu_torch/csrc/gemm.cu",
+        "replaces": "planer_tpu/ops/pallas/gemm.py:56",
+        "launches": launches, "forwards": forwards,
+        "max_abs_err": max(r["max_abs_err"] for r in grows),
+        "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
+        "bound_ms": per_fwd["bound_ms"],
+        "bound_by": "bytes" if sum(r["bound_by"] == "bytes" for r in grows)
+        * 2 > len(grows) else "operations",
+        "library_ms": None, "neighbour_ms": per_fwd["neighbour_ms"],
+        "neighbour": "not the same function: cuBLAS torch.mm of bf16 x and "
+                     "pre-dequantized bf16 weights, without the scale and "
+                     "the bias",
+        "batch": 64, "per": f"the 26 launches of one b64 forward of {path}, "
+                            f"summed over the shapes",
+        "shapes": grows}
 
 
 # --------------------------------------------------------------------------
@@ -607,8 +681,8 @@ def main():
                                  "CUDA port on one NVIDIA card.")
     ap.add_argument("--profile", metavar="DIR",
                     help="add a torch.profiler pass over the steps of the "
-                    "main path and of both ResNet-50 programs and write "
-                    "their tables to DIR")
+                    "main path, of both ResNet-50 programs of path 2 and of "
+                    "paths 4 and 6, and write their tables to DIR")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -742,6 +816,17 @@ def main():
                            "path 4 kernels vs plain dense_q (same program)")
         leg3_4 = agreement([(net4(x), net4(x, engine="oracle")) for x in imgs],
                            "path 4 weight-only int8 vs float32 executor", 0.05)
+        # the unquantized model's logits, for the quantization error of the
+        # int8 (path 4) and fp8 (path 6) weights, printed and not gated
+        float50 = models.resnet50(seed=SEED, device="cuda")
+        float50.optimize()
+        float_ref = [float50(x, engine="oracle") for x in imgs]
+        del float50
+        gap4 = agreement(
+            [(net4(x), r) for x, r in zip(imgs, float_ref)],
+            "path 4 weight-only int8 vs the unquantized float model (printed,"
+            " not gated: the int8 quantization error)", float("inf"),
+            need_margin_agree=False)
     finally:
         tops._PALLAS_CONV1X1 = False
     # the reference's own A/B (experiments/resnet50_bench.py), on the card,
@@ -784,6 +869,39 @@ def main():
                           f"path 5 ({form}) vs float32 executor", 0.05))
         finally:
             st.SPLIT, st.REQUANT = True, "fxp"
+
+    # ------------------- path 6: weight-only FP8 ResNet-50, the fp8 dense_q
+    grows8 = gemm_phase(torch, tg, "fp8")
+    t0 = time.perf_counter()
+    net6 = models.resnet50(seed=SEED, device="cuda")
+    net6.optimize()
+    net6.quantize("fp8")                       # weight-only float8_e4m3fn
+    net6.astype_compute("bfloat16")
+    log(f"resnet50 weight-only fp8 built: {time.perf_counter() - t0:.1f} s")
+    tops._PALLAS_CONV1X1 = True
+    try:
+        answers6, fwd6, (lq6, l64_6, lgn6) = drive(net6, requests, counters4)
+        check_counts("path 6 dense_q launches", lq6,
+                     {"dense_q[fp8]": 26 * fwd6})
+        check_counts("path 6 stage64 and stagen launches", {**l64_6, **lgn6},
+                     {})
+        leg1_6 = plain_leg(net6, requests, answers6,
+                           "path 6 kernels vs plain dense_q[fp8] (same "
+                           "program)")
+        leg3_6 = agreement([(net6(x), net6(x, engine="oracle")) for x in imgs],
+                           "path 6 weight-only fp8 vs float32 executor", 0.05)
+        gap6 = agreement(
+            [(net6(x), r) for x, r in zip(imgs, float_ref)],
+            "path 6 weight-only fp8 vs the unquantized float model (printed, "
+            "not gated: the fp8 quantization error)", float("inf"),
+            need_margin_agree=False)
+        steps6 = step_times(torch, net6, requests, "path 6 resnet50 "
+                            "weight-only fp8, 1x1 route on", card)
+        if args.profile:
+            profile_steps(torch, net6.program, requests, card, args.profile,
+                          "resnet50_weight_only_fp8_route")
+    finally:
+        tops._PALLAS_CONV1X1 = False
 
     # ---------------------------------------------------- kernel table
     n = 64
@@ -854,30 +972,14 @@ def main():
         log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
             f"{b_ms:.4f} by {by}, decomposed neighbour "
             f"{r['neighbour_ms']:.4f}) at b{n}")
-    per_fwd = {k: sum(r[k] * r["per_forward"] for r in grows)
-               for k in ("ms", "plain_ms", "neighbour_ms", "bound_ms")}
-    rows.append({
-        "name": "dense_q", "route": "cuda",
-        "source": "planer_tpu_torch/csrc/gemm.cu",
-        "replaces": "planer_tpu/ops/pallas/gemm.py:56",
-        "launches": lq4["dense_q"], "forwards": fwd4,
-        "max_abs_err": max(r["max_abs_err"] for r in grows),
-        "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
-        "bound_ms": per_fwd["bound_ms"],
-        "bound_by": "bytes" if sum(r["bound_by"] == "bytes" for r in grows)
-        * 2 > len(grows) else "operations",
-        "library_ms": None, "neighbour_ms": per_fwd["neighbour_ms"],
-        "neighbour": "not the same function: cuBLAS torch.mm of bf16 x and "
-                     "pre-dequantized bf16 weights, without the scale and "
-                     "the bias",
-        "batch": n, "per": "the 26 launches of one b64 forward of path 4, "
-                           "summed over the shapes",
-        "shapes": grows})
-    log(f"dense_q per b64 forward (26 launches): {per_fwd['ms']:.4f} ms "
-        f"(plain {per_fwd['plain_ms']:.4f}, bound {per_fwd['bound_ms']:.4f}, "
-        f"torch.mm neighbour {per_fwd['neighbour_ms']:.4f}); "
-        f"{sum(r['ops'] * r['per_forward'] for r in grows) / 1e9:.1f} GFLOP")
-    log(f"path 4: plain p99 {leg1_4[0]:.6g}, executor p99 {leg3_4[0]:.6g}; "
+    rows.append(gemm_row("dense_q", grows, lq4["dense_q"], fwd4, "path 4"))
+    rows.append(gemm_row("dense_q[fp8]", grows8, lq6["dense_q[fp8]"], fwd6,
+                         "path 6"))
+    log(f"path 6: plain p99 {leg1_6[0]:.6g}, executor p99 {leg3_6[0]:.6g}, "
+        f"gap to the float model p99 {gap6[0]:.6g}; steps {steps6} ms "
+        f"(printed, no claim)")
+    log(f"path 4: plain p99 {leg1_4[0]:.6g}, executor p99 {leg3_4[0]:.6g}, "
+        f"gap to the float model p99 {gap4[0]:.6g}; "
         f"steps route on {steps4['on']}, off {steps4['off']} ms (printed, no "
         f"claim); path 5: " + "; ".join(
             f"{k} plain p99 {v[0][0]:.6g}, executor p99 {v[1][0]:.6g}"

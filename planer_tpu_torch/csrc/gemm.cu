@@ -1,14 +1,19 @@
-// Hopper (sm_90a) kernel of the weight-only int8 GEMM (dense_q).
+// Hopper (sm_90a) kernel of the weight-only int8 / fp8 GEMM (dense_q).
 //
 // dense_q replaces planer_tpu/ops/pallas/gemm.py:_dense_q_kernel together with
 // the cast and bias of gemm.py:dense_q: out = cast(bf16(x) . bf16(q)^T * scale)
-// + bias, with x (M, Kd) in f32 or bf16, q (N, Kd) int8, scale (N) f32 and the
-// output and bias in x's dtype.  The products of bf16 values are exact in f32
-// and summed in f32 by the tensor cores (mma.sync m16n8k16 bf16 -> f32); the
-// epilogue rounds acc * scale once (__fmul_rn), casts to x's dtype and adds the
-// bias in that dtype, rounding once more, as the reference's cast-then-add
-// does.  The sum order differs from the reference's and from torch.matmul's,
-// so results agree within the f32 rounding of the sums, not bit for bit.
+// + bias, with x (M, Kd) in f32 or bf16, q (N, Kd) int8 or float8_e4m3fn (one
+// byte a weight either way), scale (N) f32 and the output and bias in x's
+// dtype.  Both weight types are exact in bf16, as the reference's cast at
+// gemm.py:59 assumes: e4m3 bytes decode through cvt.rn.f16x2.e4m3x2 (exact:
+// every e4m3 value is an f16, f32 and bf16 value).  The tensor cores run bf16,
+// never fp8: an e4m3 MMA would need x in fp8, which the reference does not
+// round it to.  The products of bf16 values are exact in f32 and summed in
+// f32 by the tensor cores (mma.sync m16n8k16 bf16 -> f32); the epilogue rounds
+// acc * scale once (__fmul_rn), casts to x's dtype and adds the bias in that
+// dtype, rounding once more, as the reference's cast-then-add does.  The sum
+// order differs from the reference's and from torch.matmul's, so results
+// agree within the f32 rounding of the sums, not bit for bit.
 //
 // What bounds it on the H100: at the shapes it runs (ResNet-50's 1x1 convs,
 // Kd and N of 128-2048) it does 2*Kd flops per byte of x read, under the
@@ -16,29 +21,33 @@
 // is bound by device memory: x read once per 128-column tile of the output,
 // the weights once per 128-row tile, the output written once.  This first
 // version is a plain tiled GEMM: 128x128x32 block tiles, 8 warps of 64x32,
-// a 3-stage cp.async ring of the raw x and int8 tiles, converted to bf16 in
-// shared memory (x rounded with __float2bfloat16_rn, int8 exact) and fed to
-// the tensor cores through ldmatrix.  Blocks that share rows of x run next
-// to each other, so x comes from L2 for all but the first column tile.  The
-// M tail is predicated (cp.async zero-fill, guarded stores); Kd and N are
-// multiples of 128 by the wrapper's gate.  wgmma with TMA, and reading the
-// NCHW activations in place of the route's transposed copy, are later work.
+// a 3-stage cp.async ring of the raw x and weight-byte tiles, converted to
+// bf16 in shared memory (x rounded with __float2bfloat16_rn, weights exact)
+// and fed to the tensor cores through ldmatrix.  Blocks that share rows of x
+// run next to each other, so x comes from L2 for all but the first column
+// tile.  The M tail is predicated (cp.async zero-fill, guarded stores); Kd
+// and N are multiples of 128 by the wrapper's gate.  wgmma with TMA, and
+// reading the NCHW activations in place of the route's transposed copy, are
+// later work.
 //
 // The launch is on the caller's stream, allocates nothing, and the C entry
 // point returns cudaGetLastError() for the wrapper to check.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <stdint.h>
 
 constexpr int BM = 128, BN = 128, BK = 32;
 constexpr int THREADS = 256;
 constexpr int STAGES = 3;
 constexpr int LDS = BK + 8;       // bf16 tile row stride: 80 bytes, no ldmatrix bank conflicts
+enum WType { W_INT8 = 0, W_E4M3 = 1 };   // the C entry point's wdtype codes
 
 template <typename TA>
 struct Smem {
   static constexpr int A_RAW = BM * BK * (int)sizeof(TA);   // one stage of x
-  static constexpr int B_RAW = BN * BK;                      // one stage of q
+  static constexpr int B_RAW = BN * BK;                      // one stage of q (bytes)
   static constexpr int STAGE = A_RAW + B_RAW;
   static constexpr int TILES = STAGES * STAGE;               // bf16 tiles after the ring
   static constexpr int BYTES = TILES + 2 * BM * LDS * 2;
@@ -76,10 +85,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// two e4m3 bytes (byte 0 -> the low half) -> two bf16, exactly
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(__nv_fp8x2_storage_t v) {
+  const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(v, __NV_E4M3)));
+  return pack_bf16(f.x, f.y);
+}
+
 // raw stage <- x rows [m0, m0+BM) x cols [k0, k0+BK), q rows [n0, n0+BN) x the same cols
 template <typename TA>
 __device__ __forceinline__ void load_stage(unsigned char* st, const TA* __restrict__ x,
-                                           const int8_t* __restrict__ q, int M, int Kd,
+                                           const uint8_t* __restrict__ q, int M, int Kd,
                                            int m0, int n0, int k0) {
   constexpr int A_CHUNKS_ROW = BK * (int)sizeof(TA) / 16;      // 8 (f32) or 4 (bf16)
   constexpr int A_CHUNKS = BM * A_CHUNKS_ROW;
@@ -98,7 +113,7 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const TA* __restri
 }
 
 // raw stage -> bf16 tiles: each thread converts 16 elements of x and 16 of q
-template <typename TA>
+template <typename TA, int WT>
 __device__ __forceinline__ void convert_stage(const unsigned char* st, __nv_bfloat16* As,
                                               __nv_bfloat16* Bs) {
   const int r = threadIdx.x >> 1, c0 = (threadIdx.x & 1) * 16;
@@ -121,11 +136,16 @@ __device__ __forceinline__ void convert_stage(const unsigned char* st, __nv_bflo
   dst[0] = make_uint4(w[0], w[1], w[2], w[3]);
   dst[1] = make_uint4(w[4], w[5], w[6], w[7]);
 
-  const int8_t* qs = reinterpret_cast<const int8_t*>(st + Smem<TA>::A_RAW) + r * BK + c0;
-  const uint4 qv = *reinterpret_cast<const uint4*>(qs);
-  const int8_t* b = reinterpret_cast<const int8_t*>(&qv);
+  const uint4 qv = *reinterpret_cast<const uint4*>(st + Smem<TA>::A_RAW + r * BK + c0);
+  if constexpr (WT == W_INT8) {
+    const int8_t* b = reinterpret_cast<const int8_t*>(&qv);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) w[j] = pack_bf16((float)b[2 * j], (float)b[2 * j + 1]);  // exact
+    for (int j = 0; j < 8; ++j) w[j] = pack_bf16((float)b[2 * j], (float)b[2 * j + 1]);  // exact
+  } else {
+    const __nv_fp8x2_storage_t* b = reinterpret_cast<const __nv_fp8x2_storage_t*>(&qv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) w[j] = e4m3x2_to_bf16x2(b[j]);
+  }
   uint4* dq = reinterpret_cast<uint4*>(Bs + r * LDS + c0);
   dq[0] = make_uint4(w[0], w[1], w[2], w[3]);
   dq[1] = make_uint4(w[4], w[5], w[6], w[7]);
@@ -157,9 +177,9 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p, __nv_bfl
   *reinterpret_cast<__nv_bfloat162*>(p) = v;
 }
 
-template <typename TA>
+template <typename TA, int WT>
 __global__ void __launch_bounds__(THREADS, 2)
-dense_q_kernel(const TA* __restrict__ x, const int8_t* __restrict__ q,
+dense_q_kernel(const TA* __restrict__ x, const uint8_t* __restrict__ q,
                const float* __restrict__ scale, const TA* __restrict__ bias,
                TA* __restrict__ out, int M, int N, int Kd) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -191,7 +211,7 @@ dense_q_kernel(const TA* __restrict__ x, const int8_t* __restrict__ q,
   for (int kt = 0; kt < KT; ++kt) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();   // stage kt landed for every thread; the last tile's readers are done
-    convert_stage<TA>(smem + (kt % STAGES) * Smem<TA>::STAGE, As, Bs);
+    convert_stage<TA, WT>(smem + (kt % STAGES) * Smem<TA>::STAGE, As, Bs);
     const int nk = kt + STAGES - 1;  // its ring slot was converted an iteration ago
     if (nk < KT)
       load_stage<TA>(smem + (nk % STAGES) * Smem<TA>::STAGE, x, q, M, Kd, m0, n0, nk * BK);
@@ -245,31 +265,44 @@ dense_q_kernel(const TA* __restrict__ x, const int8_t* __restrict__ q,
   }
 }
 
-template <typename TA>
+template <typename TA, int WT>
 static int launch(const void* x, const void* q, const void* scale, const void* bias, void* out,
                   int M, int N, int Kd, cudaStream_t s) {
   if (M <= 0 || N % BN || Kd % BK) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
-      dense_q_kernel<TA>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<TA>::BYTES);
+      dense_q_kernel<TA, WT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<TA>::BYTES);
   if (e != cudaSuccess) return (int)e;
   const long long blocks = (long long)((M + BM - 1) / BM) * (N / BN);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  dense_q_kernel<TA><<<(unsigned)blocks, THREADS, Smem<TA>::BYTES, s>>>(
-      reinterpret_cast<const TA*>(x), reinterpret_cast<const int8_t*>(q),
+  dense_q_kernel<TA, WT><<<(unsigned)blocks, THREADS, Smem<TA>::BYTES, s>>>(
+      reinterpret_cast<const TA*>(x), reinterpret_cast<const uint8_t*>(q),
       reinterpret_cast<const float*>(scale), reinterpret_cast<const TA*>(bias),
       reinterpret_cast<TA*>(out), M, N, Kd);
   return (int)cudaGetLastError();
 }
 
-// xdtype: 0 = float32, 1 = bfloat16 (x, bias and out)
+template <typename TA>
+static int launch_w(const void* x, const void* q, const void* scale, const void* bias, void* out,
+                    int M, int N, int Kd, int wdtype, cudaStream_t s) {
+  switch (wdtype) {
+    case W_INT8:
+      return launch<TA, W_INT8>(x, q, scale, bias, out, M, N, Kd, s);
+    case W_E4M3:
+      return launch<TA, W_E4M3>(x, q, scale, bias, out, M, N, Kd, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// xdtype: 0 = float32, 1 = bfloat16 (x, bias and out); wdtype: 0 = int8, 1 = e4m3 (q)
 extern "C" int dense_q(const void* x, const void* q, const void* scale, const void* bias,
-                       void* out, int M, int N, int Kd, int xdtype, void* stream) {
+                       void* out, int M, int N, int Kd, int xdtype, int wdtype, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (xdtype) {
     case 0:
-      return launch<float>(x, q, scale, bias, out, M, N, Kd, s);
+      return launch_w<float>(x, q, scale, bias, out, M, N, Kd, wdtype, s);
     case 1:
-      return launch<__nv_bfloat16>(x, q, scale, bias, out, M, N, Kd, s);
+      return launch_w<__nv_bfloat16>(x, q, scale, bias, out, M, N, Kd, wdtype, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -25,7 +25,8 @@ Extensions over the reference (ignored by readers that don't know them):
 
   * ``"quant"``: {init_name: {"scale": scale_init_name, "axis": 0,
     "orig_dtype": "float32", "mode": "int8"}} — weight-only quantization
-    metadata emitted by :mod:`planer_tpu.quant`.
+    metadata emitted by :mod:`planer_tpu.quant` ("mode" is "int8" or
+    "fp8").
   * ``"meta"``: free-form dict (producer, opset, ...).
 """
 from __future__ import annotations
@@ -35,6 +36,8 @@ import json
 from typing import Any
 
 import numpy as np
+
+from .ops import fp8
 
 __all__ = [
     "Layer",
@@ -215,13 +218,14 @@ def unpack_weights(graph: Graph, blob: np.ndarray) -> list[np.ndarray]:
     """Split the uint8 blob back into arrays per the ``inits`` table.
 
     Wire-compatible with reference net.py:83-88 (raveled uint8 views copied
-    in init order).
+    in init order).  A float8_e4m3fn init comes back as its uint8 bit
+    patterns (``ops.fp8``).
     """
     blob = np.asarray(blob).reshape(-1).view(np.uint8)
     out: list[np.ndarray] = []
     s = 0
     for name, shape, dtype in graph.inits:
-        dt = np.dtype(dtype)
+        dt = np.dtype(np.uint8 if fp8.is_fp8(dtype) else dtype)
         n = int(np.prod(shape, dtype=np.int64)) if shape else 1
         nbytes = n * dt.itemsize
         arr = blob[s : s + nbytes].view(dt).reshape(shape if shape else (1,))

@@ -1,25 +1,27 @@
-"""Weight-only int8 GEMM — the port of ``planer_tpu/ops/pallas/gemm.py``.
+"""Weight-only int8 / fp8 GEMM — the port of ``planer_tpu/ops/pallas/gemm.py``.
 
-``dense_q(x, K, B)`` computes y = x @ dequant(K).T + B for int8 weights
-``K.q`` (N, Kd) with per-output-channel scales, by one of two numerics, as
-the reference does:
+``dense_q(x, K, B)`` computes y = x @ dequant(K).T + B for int8 or
+float8_e4m3fn weights ``K.q`` (N, Kd) with per-output-channel scales, by one
+of two numerics, as the reference does:
 
   * the kernel branch, where ``tile_plan`` admits the shape (N and Kd
     multiples of 128, M >= 8, within the reference's VMEM budget): x rounded
-    to bf16, the int8 weights exact in bf16, an f32 sum of exact products,
-    the per-column scale applied to the f32 accumulator, the result cast to
-    x's dtype and the bias added after the cast.  On CUDA tensors this is
-    the hand-written Hopper kernel ``csrc/gemm.cu`` (launches counted in
-    ``LAUNCHES["dense_q"]``); on CPU tensors its plain PyTorch version
-    ``dense_q_plain``;
+    to bf16, the weights exact in bf16 (int8 and e4m3 both are), an f32 sum
+    of exact products, the per-column scale applied to the f32 accumulator,
+    the result cast to x's dtype and the bias added after the cast.  On
+    CUDA tensors this is the hand-written Hopper kernel ``csrc/gemm.cu``
+    (launches counted in ``LAUNCHES["dense_q"]`` for int8 weights and
+    ``LAUNCHES["dense_q[fp8]"]`` for fp8); on CPU tensors its plain PyTorch
+    version ``dense_q_plain``;
   * ``fallback_dense`` everywhere else (the ResNet fc, N = 1000): weights
     dequantized to x's dtype, f32 accumulation, cast, then the bias.  The
     reference computes it outside any Pallas kernel, so it stays a
     ``torch.matmul``.
 
 The gate decides the numerics, so the port takes the kernel branch on
-exactly the shapes where the TPU takes it.  Its tile sizes are TPU tiling
-and the kernel does not use them.
+exactly the shapes where the TPU takes it.  It has no dtype term, and its
+VMEM estimate counts one byte per weight for both payloads.  Its tile sizes
+are TPU tiling and the kernel does not use them.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ from ..qtypes import QTensor
 __all__ = ["dense_q", "matmul_q", "tile_plan", "fallback_dense",
            "dense_q_plain", "dense_q_kernel", "LAUNCHES"]
 
-# kernel launches ("dense_q"); plain-version runs are not counted
+# kernel launches ("dense_q": int8 weights, "dense_q[fp8]": e4m3 weights);
+# plain-version runs are not counted
 LAUNCHES = collections.Counter()
 
 _VMEM_BUDGET = 12 * 1024 * 1024   # the reference's, part of its gate
@@ -88,33 +91,39 @@ def dense_q_plain(x2d, q, scale, B=None):
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _XDTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# weight dtype -> (the kernel's wdtype code, the LAUNCHES key)
+_WDTYPES = {torch.int8: (0, "dense_q"),
+            torch.float8_e4m3fn: (1, "dense_q[fp8]")}
 
 
 def _lib():
     from . import build
     lib = build.load("gemm")
     if not getattr(lib, "_planer_typed", False):
-        lib.dense_q.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP]
+        lib.dense_q.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                                _VP]
         lib.dense_q.restype = _I
         lib._planer_typed = True
     return lib
 
 
 def _launch(x2d, q, scale, B):
-    """One kernel launch: (M, Kd) x in f32 or bf16, (N, Kd) int8 weights as
-    they are (row n is the k-contiguous column n of the GEMM's B)."""
+    """One kernel launch: (M, Kd) x in f32 or bf16, (N, Kd) int8 or e4m3
+    weights as they are (row n is the k-contiguous column n of the GEMM's
+    B)."""
     M, Kd = x2d.shape
     N = q.shape[0]
+    wcode, key = _WDTYPES[q.dtype]
     if x2d.data_ptr() % 16:       # 16-byte cp.async rows
         x2d = x2d.clone()
     out = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
     err = _lib().dense_q(x2d.data_ptr(), q.data_ptr(), scale.data_ptr(),
                          B.data_ptr() if B is not None else None,
-                         out.data_ptr(), M, N, Kd, _XDTYPES[x2d.dtype],
+                         out.data_ptr(), M, N, Kd, _XDTYPES[x2d.dtype], wcode,
                          torch.cuda.current_stream(x2d.device).cuda_stream)
     if err:
         raise RuntimeError(f"dense_q launch failed: CUDA error {err}")
-    LAUNCHES["dense_q"] += 1
+    LAUNCHES[key] += 1
     return out
 
 
@@ -129,9 +138,10 @@ def dense_q_kernel(x2d, q, scale, B=None):
     N = q.shape[0]
     if tile_plan(M, N, Kd) is None:
         raise ValueError(f"dense_q: ({M}, {N}, {Kd}) is not a kernel shape")
-    if x2d.dtype not in _XDTYPES or q.dtype != torch.int8:
-        raise TypeError(f"dense_q: x {x2d.dtype} and weights {q.dtype}; "
-                        f"the kernel takes f32 or bf16 x and int8 weights")
+    if x2d.dtype not in _XDTYPES or q.dtype not in _WDTYPES:
+        raise TypeError(f"dense_q: x {x2d.dtype} and weights {q.dtype}; the "
+                        f"kernel takes f32 or bf16 x and int8 or "
+                        f"float8_e4m3fn weights")
     scale = scale.reshape(N)
     if scale.dtype != torch.float32:
         raise TypeError(f"dense_q: scale dtype {scale.dtype}")
@@ -154,10 +164,11 @@ def dense_q_kernel(x2d, q, scale, B=None):
 # --------------------------------------------------------------------------
 
 def dense_q(x, K: QTensor, B=None, *, plain=False):
-    """y = x @ dequant(K).T + B;  K.q is (N, Kd) int8, scales (N, 1).  The
-    shape alone picks the numerics (``tile_plan``).  ``plain`` runs the
-    kernel branch's plain version on any device — the reference a caller
-    holds the kernel against; it never happens by itself."""
+    """y = x @ dequant(K).T + B;  K.q is (N, Kd) int8 or float8_e4m3fn,
+    scales (N, 1).  The shape alone picks the numerics (``tile_plan``).
+    ``plain`` runs the kernel branch's plain version on any device — the
+    reference a caller holds the kernel against; it never happens by
+    itself."""
     N, Kd = K.q.shape
     x2d = x.reshape(-1, Kd)
     if tile_plan(x2d.shape[0], N, Kd) is None:

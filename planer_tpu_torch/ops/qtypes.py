@@ -12,14 +12,17 @@ __all__ = ["QTensor"]
 class QTensor:
     """Quantized weight payload + broadcast-ready scales.
 
-    ``q`` is an int8 tensor with the original weight's shape; ``scale`` is a
-    float32 tensor already shaped for broadcast (per output channel).
+    ``q`` is an int8 or a float8_e4m3fn tensor with the original weight's
+    shape; ``scale`` is a float32 tensor already shaped for broadcast (per
+    output channel).  Both payload types are exact in float32, so
+    ``dequant`` is the same arithmetic for either.
 
     ``act_dynamic``: the consuming op may quantize its activations
     per-tensor on the fly and run the s8 x s8 -> s32 path where the shape
-    profits.  ``act_scale`` is the calibrated static per-tensor activation
-    scale, or None.  Identity equality (``eq=False``) keeps instances
-    hashable, so per-weight caches can key on them.
+    profits (int8 payloads only; the ops' gates test ``q.dtype``).
+    ``act_scale`` is the calibrated static per-tensor activation scale, or
+    None.  Identity equality (``eq=False``) keeps instances hashable, so
+    per-weight caches can key on them.
     """
 
     q: torch.Tensor

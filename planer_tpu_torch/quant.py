@@ -1,21 +1,23 @@
-"""Quantization: per-output-channel INT8 weights, calibrated static
-activation scales, and the quantized program — the port's counterpart of
-``planer_tpu/quant.py``.
+"""Quantization: per-output-channel INT8 or FP8 (e4m3fn) weights,
+calibrated static activation scales, and the quantized program — the
+port's counterpart of ``planer_tpu/quant.py``.
 
   * :func:`calibrate_act_scales` runs batches through the float32 executor
     and records, per conv weight, the percentile of |input| (taken with
     ``np.percentile`` on the host, as the reference does);
-  * :func:`quantize_net` rewrites GEMM-shaped weights to int8 with
-    per-output-channel absmax scales and records them in ``graph.quant``
-    (the same IR and bytes as the JAX package's pass);
+  * :func:`quantize_net` rewrites GEMM-shaped weights to int8 or
+    float8_e4m3fn with per-output-channel absmax scales and records them in
+    ``graph.quant`` (the same IR and bytes as the JAX package's pass; fp8
+    payloads live on the host as uint8 bit patterns, ``ops.fp8``);
   * :func:`make_quant_program` builds a :class:`Program` whose params carry
-    the int8 payloads and scales as QTensors.
+    the int8 or fp8 payloads and scales as QTensors.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .ir import Graph
+from .ops import fp8
 from .ops.qtypes import QTensor
 from .runtime.program import Program
 
@@ -40,7 +42,11 @@ def _is_weight_pos(op: str, p: int) -> bool:
     return p == 1
 
 
-_MODES = {"int8": (np.int8, 127.0)}
+# mode: (the payload's init dtype name, the largest magnitude it takes)
+_MODES = {
+    "int8": ("int8", 127.0),
+    "fp8": (fp8.NAME, fp8.MAX),
+}
 
 
 def calibrate_act_scales(net, batches, percentile: float = 99.99) -> dict:
@@ -114,7 +120,10 @@ def calibrate_act_scales(net, batches, percentile: float = 99.99) -> dict:
 
 def quantize_net(net, mode: str = "int8", skip: tuple = (),
                  activations: str | None = None):
-    """In-place weight quantization of a Net's GEMM-shaped weights.
+    """In-place weight quantization of a Net's GEMM-shaped weights, to int8
+    (``mode="int8"``) or float8_e4m3fn (``mode="fp8"``, weights / (absmax /
+    448) cast to e4m3 with round-to-nearest-even, stored as uint8 bit
+    patterns under the init dtype name ``"float8_e4m3fn"``).
 
     ``activations="static"`` uses the scales of a prior
     :func:`calibrate_act_scales` run; ``"dynamic"`` quantizes activations
@@ -122,7 +131,7 @@ def quantize_net(net, mode: str = "int8", skip: tuple = (),
     if mode not in _MODES:
         raise NotImplementedError(f"quantize mode {mode!r} is not ported "
                                   f"yet (ported: {sorted(_MODES)})")
-    qdtype, qmax = _MODES[mode]
+    qname, qmax = _MODES[mode]
     graph: Graph = net.graph
     users = graph.weight_users()
     idx = graph.init_index()
@@ -145,11 +154,14 @@ def quantize_net(net, mode: str = "int8", skip: tuple = (),
         red = tuple(a for a in range(w.ndim) if a != out_axis)
         absmax = np.maximum(np.abs(w).max(axis=red, keepdims=True), 1e-12)
         scale = (absmax / qmax).astype(np.float32)
-        q = np.clip(np.round(w / scale), -qmax, qmax).astype(qdtype)
+        if mode == "int8":
+            q = np.clip(np.round(w / scale), -qmax, qmax).astype(np.int8)
+        else:
+            q = fp8.encode(w / scale)
         sname = name + "~scale"
         net.weights[i] = q
         net.weights.append(scale)
-        new_inits[i] = (name, tuple(q.shape), str(q.dtype))
+        new_inits[i] = (name, tuple(q.shape), qname)
         new_inits.append((sname, tuple(scale.shape), str(scale.dtype)))
         quant[name] = {"scale": sname, "axis": out_axis,
                        "orig_dtype": "float32", "mode": mode}
@@ -163,15 +175,19 @@ def quantize_net(net, mode: str = "int8", skip: tuple = (),
 
 def dequant_weights(graph: Graph, weights: list[np.ndarray]) -> list[np.ndarray]:
     """Full-precision view of a (possibly) quantized weight list — what the
-    float32 executor runs on."""
+    float32 executor runs on.  fp8 payloads decode by their init's dtype
+    name."""
     if not graph.quant:
         return weights
     idx = graph.init_index()
     out = list(weights)
     for name, info in graph.quant.items():
-        q = weights[idx[name]]
+        i = idx[name]
+        q = weights[i]
+        q = fp8.decode(q) if fp8.is_fp8(graph.inits[i][2]) \
+            else q.astype(np.float32)
         s = weights[idx[info["scale"]]]
-        out[idx[name]] = (q.astype(np.float32) * s).astype(info["orig_dtype"])
+        out[i] = (q * s).astype(info["orig_dtype"])
     return out
 
 
@@ -191,7 +207,10 @@ def make_quant_program(graph: Graph, weights: list[np.ndarray],
                 out[name] = leaf
             else:
                 a_scale = act_scales.get(name) if act_mode == "static" else None
-                out[name] = QTensor(weights[idx[name]],
+                q = weights[idx[name]]
+                if fp8.is_fp8(graph.inits[idx[name]][2]):
+                    q = fp8.to_tensor(q)
+                out[name] = QTensor(q,
                                     weights[idx[info["scale"]]],
                                     act_dynamic=act_mode in ("dynamic",
                                                              "static"),
@@ -206,7 +225,7 @@ def make_quant_program(graph: Graph, weights: list[np.ndarray],
             return leaf
         if isinstance(leaf, QTensor):
             if op in _QUANT_OPS:
-                return leaf  # quant-aware op consumes int8 directly
+                return leaf  # quant-aware op consumes the payload directly
             return leaf.dequant()
         return leaf
 

@@ -56,6 +56,14 @@ class Net:
         stages (optimize.fuse_stagen); those fused at a supported geometry
         (R = 28 and 56 at 224) run the stagen kernel.
 
+        ``mode='fp8'`` stores float8_e4m3fn weights (scale = absmax / 448)
+        and is weight-only: the s8 activation paths and the stage64 and
+        stagen kernels take int8 weights, so fp8 convs dequantize to the
+        compute dtype (and 1x1 ones take ``dense_q``'s fp8 kernel under
+        ``torch_ops._PALLAS_CONV1X1``), and ``fuse`` defaults to off.  A
+        stage fused anyway (``fuse=True`` or ``'all'``) runs its decomposed
+        chain.
+
         ``fuse='all'`` reproduces the JAX package's fused-stage arithmetic,
         which is far from the float model on a calibrated net: at 224,
         max|d|/max|y| per image against the float32 executor has a p99 of

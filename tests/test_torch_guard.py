@@ -13,6 +13,7 @@ import torch
 
 import planer_tpu_torch as pt
 from planer_tpu_torch import models
+from planer_tpu_torch.ops import fp8
 from planer_tpu_torch.ops.kernels import build
 from planer_tpu_torch.ops.kernels import gemm as tg
 from planer_tpu_torch.ops.kernels import stage64 as st
@@ -228,6 +229,48 @@ def test_gemm_wrapper_runs_plain_version_on_cpu_only():
         tg.dense_q_kernel(*(a.to("meta") for a in (x, q, s)))
     with pytest.raises(ValueError):                     # mixed devices
         tg.dense_q_kernel(x.to("meta"), q, s)
+
+
+def test_gemm_fp8_wrapper_runs_plain_version_on_cpu_only():
+    """The fp8 weight form: the plain version on CPU tensors, no launch
+    counted; weights that are neither int8 nor float8_e4m3fn (their uint8
+    bytes, float16, the other fp8 format) are refused."""
+    tg.LAUNCHES.clear()
+    x, q, s = _gemm_args()
+    q8 = fp8.to_tensor(fp8.encode(q.float().numpy() * 3.0))
+    out = tg.dense_q_kernel(x, q8, s)
+    assert torch.equal(out, tg.dense_q_plain(x, q8, s))
+    assert out.dtype == torch.bfloat16 and not tg.LAUNCHES
+    for bad in (q8.view(torch.uint8), q8.to(torch.float16),
+                q8.to(torch.float8_e5m2)):
+        with pytest.raises(TypeError, match="float8_e4m3fn"):
+            tg.dense_q_kernel(x, bad, s)
+    with pytest.raises(ValueError, match="no kernel"):
+        tg.dense_q_kernel(*(a.to("meta") for a in (x, q8, s)))
+
+
+def test_gemm_fp8_launch_failure_raises(monkeypatch):
+    """The fp8 form passes the kernel its weight code (1) and raises on a
+    CUDA error, counting nothing."""
+    tg.LAUNCHES.clear()
+    x, q, s = _gemm_args()
+    q8 = fp8.to_tensor(fp8.encode(q.float().numpy()))
+    seen = []
+
+    class Lib:
+        class dense_q:                                  # noqa: N801
+            def __new__(cls, *a):
+                seen.append(a)
+                return 700                              # illegal address
+    monkeypatch.setattr(tg, "_lib", lambda: Lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        tg._launch(x, q8, s.reshape(-1), None)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        tg._launch(x, q, s.reshape(-1), None)
+    assert [a[8:10] for a in seen] == [(1, 1), (1, 0)]    # xdtype, wdtype
+    assert not tg.LAUNCHES
 
 
 def test_gemm_kernel_failures_raise_instead_of_falling_back(monkeypatch):
