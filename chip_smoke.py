@@ -2,13 +2,17 @@
 
     python3 chip_smoke.py
 
-1. prints the card (nvidia-smi name and power limit) and builds the port's
-   CUDA kernels from ``planer_tpu_torch/csrc`` with nvcc (sm_90a);
-2. kernel phase: at the main path's 224 shapes, batch 1 and 64, calls each
-   kernel wrapper on card tensors and holds the result against its plain
-   PyTorch version on the same inputs (int8 planes bit-exact, bf16 planes
-   within one bf16 ulp), and times kernel, plain version and a cuDNN
-   neighbour with CUDA events;
+1. prints the card (nvidia-smi name and power limit), builds the port's
+   CUDA kernels from ``planer_tpu_torch/csrc`` with nvcc (sm_90a) and
+   prints each kernel's registers and spill bytes from ``-Xptxas=-v``
+   (a stage64 kernel that spills fails the run);
+2. kernel phase: at the main path's 224 shapes, batch 1 and 64, and at the
+   ragged 200 (R = 50, a multiple of no tile side), batch 2, calls each
+   stage64 wrapper in every form on card tensors, with the packed weights
+   the program hands it, and holds the result against its plain PyTorch
+   version on the same inputs (int8 planes bit-exact, bf16 planes within
+   one bf16 ulp); times kernel, plain version and a cuDNN neighbour with
+   CUDA events at batch 64 and reports the achieved int8 TOP/s;
 3. main path: INT8 ResNet-18 at 224 (random weights from a seed), optimized,
    calibrated on 4 synthetic images, quantized with static activation
    scales, bf16 compute; answers requests through ``Net.__call__`` and
@@ -188,8 +192,31 @@ def profile_steps(torch, prog, requests, card, out_dir, name="main"):
                 sort_by="self_cuda_time_total", row_limit=60))
 
 
+def ptxas_report(log):
+    """(kernel, registers, spill store bytes, spill load bytes) for each
+    entry function in nvcc's ``-Xptxas=-v`` output."""
+    import re
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"([A-Za-z_]+_kernel)I(.*?)EE", m.group(1))
+            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *spills))
+            name, spills = None, (0, 0)
+    return rows
+
+
 def kernel_phase(torch, st, F):
-    """Each kernel against its plain version at 224, batch 1 and 64."""
+    """Each kernel against its plain version at 224, batch 1 and 64, and
+    at the ragged 200 (R = 50, a multiple of no tile side), batch 2."""
     from planer_tpu_torch.ops.qtypes import QTensor
     from planer_tpu_torch.models.eval import synthetic_images
     dev = torch.device("cuda")
@@ -220,8 +247,8 @@ def kernel_phase(torch, st, F):
              "stem_pool_requant[trunc]", "basic_block[trunc]",
              "basic_block_last[trunc]")
     stats, errs = {}, {}
-    for n in (1, 64):
-        x = torch.as_tensor(next(synthetic_images(n, (3, 224, 224), seed=n,
+    for n, h in ((1, 224), (64, 224), (2, 200)):
+        x = torch.as_tensor(next(synthetic_images(n, (3, h, h), seed=n,
                                                   batch=n)), device=dev)
         xq = st.stem_prologue(x, plan.s_in)
         y0 = st.stem_pool_requant_plain(xq, plan.ws, plan.stem_table)
@@ -233,33 +260,41 @@ def kernel_phase(torch, st, F):
         yt1 = st.basic_block_plain(yt0, t0.w1, t0.q1, t0.w2, t0.e2, t0.sx,
                                    False, True)
         stem, block = st.stem_pool_requant, st.basic_block
+        # the kernels get the packed weights the program hands them
+        sp = {"wpack": plan.ws_pack}
+
+        def bp(b):
+            return {"w1p": b.w1p, "w2p": b.w2p}
         cases = {
-            "stem_pool_requant": (stem, (xq, plan.ws, plan.stem_table, "fxp")),
+            "stem_pool_requant": (stem, (xq, plan.ws, plan.stem_table, "fxp"),
+                                  sp),
             "basic_block": (block, (y0, b0.w1, b0.q1, b0.w2, b0.e2, b0.sx,
-                                    False)),
+                                    False), bp(b0)),
             "basic_block_last": (block, (y1, b1.w1, b1.q1, b1.w2, b1.e2,
-                                         b1.sx, True)),
+                                         b1.sx, True), bp(b1)),
             "basic_block[out_scale]": (block, (y1, b1q.w1, b1q.q1, b1q.w2,
-                                               b1q.e2, b1q.sx, False)),
+                                               b1q.e2, b1q.sx, False),
+                                       bp(b1q)),
             "stem_pool_requant[bf16]": (
-                stem, (xq, plan.ws, stem_bf16.stem_table, "bf16")),
+                stem, (xq, plan.ws, stem_bf16.stem_table, "bf16"), sp),
             "stem_pool_requant[trunc, stem-only]": (
-                stem, (xq, plan.ws, stem_trunc.stem_table, "trunc")),
+                stem, (xq, plan.ws, stem_trunc.stem_table, "trunc"), sp),
             "stem_pool_requant[trunc]": (
-                stem, (xq, plan.ws, plan_t.stem_table, "trunc")),
+                stem, (xq, plan.ws, plan_t.stem_table, "trunc"), sp),
             "basic_block[trunc]": (block, (yt0, t0.w1, t0.q1, t0.w2, t0.e2,
-                                           t0.sx, False, True)),
+                                           t0.sx, False, True), bp(t0)),
             "basic_block_last[trunc]": (block, (yt1, t1.w1, t1.q1, t1.w2,
-                                                t1.e2, t1.sx, True, True)),
+                                                t1.e2, t1.sx, True, True),
+                                        bp(t1)),
             "basic_block[trunc, out_scale]": (
                 block, (yt1, t1q.w1, t1q.q1, t1q.w2, t1q.e2, t1q.sx, False,
-                        True)),
+                        True), bp(t1q)),
         }
         plains = {stem: st.stem_pool_requant_plain,
                   block: st.basic_block_plain}
-        for name, (kern, args) in cases.items():
+        for name, (kern, args, packed) in cases.items():
             plain = plains[kern]
-            out = kern(*args)
+            out = kern(*args, **packed)
             torch.cuda.synchronize()
             ref = plain(*args)
             if out.dtype != ref.dtype or out.shape != ref.shape:
@@ -273,7 +308,7 @@ def kernel_phase(torch, st, F):
                 ok = bool((d <= torch.exp2(torch.floor(torch.log2(r)) - 7)
                            ).all())
             errs[name] = max(errs.get(name, 0.0), float(d.max()))
-            log(f"kernel {name} b{n}: {out.dtype}{tuple(out.shape)} "
+            log(f"kernel {name} b{n} H{h}: {out.dtype}{tuple(out.shape)} "
                 f"max_abs_err {float(d.max())} nonzero "
                 f"{float((ref != 0).float().mean()):.3f} -> "
                 f"{'ok' if ok else 'MISMATCH'}")
@@ -281,7 +316,8 @@ def kernel_phase(torch, st, F):
                 raise SystemExit(f"kernel {name} disagrees with its plain "
                                  f"version")
             if n == 64 and name in timed:
-                stats[name] = {"ms": cuda_ms(lambda: kern(*args), 20),
+                stats[name] = {"ms": cuda_ms(lambda: kern(*args, **packed),
+                                             20),
                                "plain_ms": cuda_ms(lambda: plain(*args), 5)}
     for name in timed:
         stats[name]["err"] = errs[name]
@@ -703,9 +739,11 @@ def main():
     took = build.build()
     log(f"kernel build (nvcc sm_90a, parallel): {took}")
     for name in took:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for kern, regs, st_b, ld_b in ptxas_report(build.build_log(name)):
+            log(f"  ptxas {name} {kern}: {regs} registers, {st_b} bytes "
+                f"spill stores, {ld_b} bytes spill loads")
+            if name == "stage64" and (st_b or ld_b):
+                raise SystemExit(f"stage64 {kern} spills registers")
 
     # ---------------------------------------------------------- kernels
     stats, lib_stem, lib_block = kernel_phase(torch, st, F)
@@ -942,7 +980,7 @@ def main():
             "max_abs_err": s["err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"], "bound_ms": b_ms,
             "bound_by": by, "library_ms": lib, "library_call": lib_call,
-            "batch": n}
+            "tops": ops / (s["ms"] * 1e-3) / 1e12, "batch": n}
         if name in trunc_keys:     # path 5: REQUANT="trunc" and SPLIT=False
             row.update(launches=l5["trunc"][name],
                        launches_one_call=l5["one-call"][name])
@@ -952,7 +990,8 @@ def main():
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
             f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library "
-            f"neighbour {r['library_ms']:.4f}) at b{n}")
+            f"neighbour {r['library_ms']:.4f}), {r['tops']:.1f} TOP/s "
+            f"achieved at b{n}")
     for name, r in srows.items():
         b_ms, by = bound_ms(r["bytes"], r["ops"])
         rows.append({

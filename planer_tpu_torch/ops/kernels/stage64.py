@@ -1,15 +1,27 @@
 """Fused ResNet entry stage (stem conv + maxpool + C=64 basic blocks) — the
 port of ``planer_tpu/ops/pallas/stage64.py``.
 
-Two hand-written Hopper kernels (``csrc/stage64.cu``) run the stage:
+Two hand-written Hopper kernels (``csrc/stage64.cu``) run the stage, both
+implicit GEMMs on the int8 tensor cores (``mma.sync`` m16n8k32 s8 x s8 ->
+s32) in a persistent grid that loads the weights once per block:
 
   * ``stem_pool_requant`` replaces ``_stage_kernel`` in its stem-only forms:
-    7x7/2 s8 conv with int32 accumulation, the 3x3/2 maxpool taken on the
-    raw int32 accumulators (-2^30 border), one requant of the pooled plane;
+    7x7/2 s8 conv with int32 accumulation (K = the 147 taps zero-padded to
+    160, gathered into a shared-memory A tile of a 15 x 17 conv tile), the
+    3x3/2 maxpool taken on the raw int32 accumulators (-2^30 border), one
+    requant of the pooled 7 x 8 tile;
   * ``basic_block`` replaces ``_block_kernel``: conv3x3 -> requant ->
     int8 mid plane kept in shared memory -> conv3x3 + residual -> int8 out,
     or, for a last block without ``out_scale``, exact f32 + ReLU -> bf16
-    out.
+    out, on 14 x 14 output tiles held channel-last in shared memory (a tap
+    is an address offset: no im2col copy), both convs' weights resident.
+
+Their weights are packed in the kernels' order once, when ``_fold`` builds
+the plan the program caches (``_pack_stem``: (64, 160) with K in the
+weights' (c, ky, kx) order; ``_pack_block``: (9, 64, 64) [tap][o][c]), and
+``_run`` hands them to the wrappers, so no call on the program path
+permutes or pads a weight.  A wrapper called without them packs them
+itself.
 
 Beside each kernel sits its plain PyTorch version with the same integer
 arithmetic.  A wrapper runs the plain version only for CPU tensors; for a
@@ -249,6 +261,15 @@ def _check(t, name, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _check_aligned(*named):
+    """The kernels read weights and tables in aligned 16-byte pieces and the
+    stem's input in aligned 4-byte words; 16 covers both (an image of a
+    batch with H % 4 == 0 starts 16-byte aligned)."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: must be 16-byte aligned")
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -258,9 +279,27 @@ def _table_spec(mode):
         else (torch.float32, (2, 64))
 
 
-def stem_pool_requant(xq, wq, table, mode="fxp"):
+STEM_K = 160     # the stem's 147 taps zero-padded to 5 k-steps of 32
+
+
+def _pack_stem(wq):
+    """(64, 3, 7, 7) -> (64, 160): each output channel's taps in their flat
+    (c, ky, kx) order, then 13 zeros — the stem kernel's B operand."""
+    return F.pad(wq.reshape(64, 147), (0, STEM_K - 147)).contiguous()
+
+
+def _pack_block(w):
+    """OIHW (64, 64, 3, 3) -> (9, 64, 64) [tap][o][c], tap = 3*ky + kx: a
+    (tap, out channel) row is 64 contiguous input-channel bytes — the block
+    kernel's B operand."""
+    return w.permute(2, 3, 0, 1).reshape(9, 64, 64).contiguous()
+
+
+def stem_pool_requant(xq, wq, table, mode="fxp", wpack=None):
     """Kernel wrapper for ``stem_pool_requant_plain`` (same arguments).
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    ``wpack`` is ``_pack_stem(wq)`` when the caller keeps it (the program
+    does); without it the wrapper packs ``wq`` for this call."""
     if mode not in STEM_MODES:
         raise ValueError(f"unknown stem mode {mode!r}")
     if xq.ndim != 4 or xq.shape[1] != 3 or xq.shape[2] != xq.shape[3] \
@@ -272,15 +311,18 @@ def stem_pool_requant(xq, wq, table, mode="fxp"):
     _check(xq, "xq", torch.int8, (n, 3, h, h), dev)
     _check(wq, "wq", torch.int8, (64, 3, 7, 7), dev)
     _check(table, "table", tdt, tshape, dev)
+    if wpack is not None:
+        _check(wpack, "wpack", torch.int8, (64, STEM_K), dev)
     if dev.type == "cpu":
         return stem_pool_requant_plain(xq, wq, table, mode)
     if dev.type != "cuda":
         raise ValueError(f"stem_pool_requant: no kernel for {dev}")
-    # (64, 147) -> (64, 148): one zero tap so each channel is 37 int32 words
-    w148 = F.pad(wq.reshape(64, 147), (0, 1)).contiguous()
+    if wpack is None:
+        wpack = _pack_stem(wq)
+    _check_aligned(("xq", xq), ("wpack", wpack), ("table", table))
     odt = torch.bfloat16 if mode == "bf16" else torch.int8
     out = torch.empty((n, 64, h // 4, h // 4), dtype=odt, device=dev)
-    err = _lib().stem_pool_requant(xq.data_ptr(), w148.data_ptr(),
+    err = _lib().stem_pool_requant(xq.data_ptr(), wpack.data_ptr(),
                                    table.data_ptr(), out.data_ptr(), n, h,
                                    STEM_MODES[mode], _stream(xq))
     if err:
@@ -290,11 +332,20 @@ def stem_pool_requant(xq, wq, table, mode="fxp"):
     return out
 
 
-def basic_block(y, w1, q1, w2, e2, sx=0.0, last=False, trunc=False):
+def basic_block(y, w1, q1, w2, e2, sx=0.0, last=False, trunc=False,
+                w1p=None, w2p=None):
     """Kernel wrapper for ``basic_block_plain`` (same arguments).
-    CPU tensors run the plain version; CUDA tensors launch the kernel."""
-    if y.ndim != 4 or y.shape[1] != 64 or y.shape[2] != y.shape[3]:
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    ``w1p``/``w2p`` are ``_pack_block`` of ``w1``/``w2`` when the caller
+    keeps them (the program does); without them the wrapper packs the
+    weights for this call."""
+    # an even side, as every eligible stage side is: the kernel stores
+    # pixel pairs
+    if y.ndim != 4 or y.shape[1] != 64 or y.shape[2] != y.shape[3] \
+            or y.shape[2] % 2:
         raise ValueError(f"block input shape {tuple(y.shape)} unsupported")
+    if (w1p is None) != (w2p is None):
+        raise ValueError("basic_block: pass both packed weights or neither")
     dev = y.device
     qdt, qshape = _table_spec("trunc" if trunc else "fxp")
     edt, eshape = _table_spec("trunc" if (last or trunc) else "fxp")
@@ -303,14 +354,17 @@ def basic_block(y, w1, q1, w2, e2, sx=0.0, last=False, trunc=False):
     _check(w2, "w2", torch.int8, (64, 64, 3, 3), dev)
     _check(q1, "q1", qdt, qshape, dev)
     _check(e2, "e2", edt, eshape, dev)
+    if w1p is not None:
+        _check(w1p, "w1p", torch.int8, (9, 64, 64), dev)
+        _check(w2p, "w2p", torch.int8, (9, 64, 64), dev)
     if dev.type == "cpu":
         return basic_block_plain(y, w1, q1, w2, e2, sx, last, trunc)
     if dev.type != "cuda":
         raise ValueError(f"basic_block: no kernel for {dev}")
     n, _, r, _ = y.shape
-    # OIHW -> [ky][kx][o][c]: each (tap, out channel) is 64 contiguous bytes
-    w1p = w1.permute(2, 3, 0, 1).contiguous()
-    w2p = w2.permute(2, 3, 0, 1).contiguous()
+    if w1p is None:
+        w1p, w2p = _pack_block(w1), _pack_block(w2)
+    _check_aligned(("w1p", w1p), ("w2p", w2p), ("q1", q1), ("e2", e2))
     out = torch.empty((n, 64, r, r),
                       dtype=torch.bfloat16 if last else torch.int8,
                       device=dev)
@@ -338,6 +392,8 @@ class _Block:
     sx: float
     last: bool
     trunc: bool
+    w1p: torch.Tensor     # _pack_block(w1), _pack_block(w2): the kernel's B
+    w2p: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -348,6 +404,7 @@ class _Plan:
     stem_table: torch.Tensor
     blocks: list
     out_int8: bool
+    ws_pack: torch.Tensor     # _pack_stem(ws): the stem kernel's B
 
 
 def _np32(v):
@@ -410,18 +467,26 @@ def _fold(Ws, Bs, blocks, out_scale, device, requant="fxp", split=True):
         q1 = rows(f1, b1) if trunc else dev(_fxp_pack(f1, b1), torch.int32)
         e2 = (rows(f2, b2) if (flast or trunc)
               else dev(_fxp_pack(f2, b2, sx=sx), torch.int32))
-        plan_blocks.append(_Block(W1.q, q1, W2.q, e2, sx, flast, trunc))
+        plan_blocks.append(_Block(W1.q, q1, W2.q, e2, sx, flast, trunc,
+                                  _pack_block(W1.q), _pack_block(W2.q)))
     return _Plan(s_in, Ws.q, stem_mode, stem_table, plan_blocks,
-                 bool(out_scale) and not one_call)
+                 bool(out_scale) and not one_call, _pack_stem(Ws.q))
 
 
 def _run(x, plan, plain=False):
-    stem, block = ((stem_pool_requant_plain, basic_block_plain) if plain
-                   else (stem_pool_requant, basic_block))
-    y = stem(stem_prologue(x, plan.s_in), plan.ws, plan.stem_table,
-             plan.stem_mode)
-    for b in plan.blocks:
-        y = block(y, b.w1, b.q1, b.w2, b.e2, b.sx, b.last, b.trunc)
+    xq = stem_prologue(x, plan.s_in)
+    if plain:
+        y = stem_pool_requant_plain(xq, plan.ws, plan.stem_table,
+                                    plan.stem_mode)
+        for b in plan.blocks:
+            y = basic_block_plain(y, b.w1, b.q1, b.w2, b.e2, b.sx, b.last,
+                                  b.trunc)
+    else:
+        y = stem_pool_requant(xq, plan.ws, plan.stem_table, plan.stem_mode,
+                              wpack=plan.ws_pack)
+        for b in plan.blocks:
+            y = basic_block(y, b.w1, b.q1, b.w2, b.e2, b.sx, b.last,
+                            b.trunc, w1p=b.w1p, w2p=b.w2p)
     return y if plan.out_int8 else y.to(x.dtype)
 
 

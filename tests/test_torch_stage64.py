@@ -350,3 +350,290 @@ def test_trunc_block_wrapper_tables(monkeypatch):
     with pytest.raises(TypeError):
         tst.basic_block(y, b0.w1, fxp.blocks[0].q1, b0.w2, b0.e2, b0.sx,
                         False, True)
+
+
+# ------------------------------ the kernels' operand packing and indexing
+#
+# numpy copies of csrc/stage64.cu's shared-memory layouts and of the
+# mma.sync m16n8k32 fragments its ldmatrix loads hold (A word h of row
+# g + 8*(h % 2) at byte 16*(h // 2) + 4*t4 of the k-step, B word j of
+# column g at byte 16*j + 4*t4), computing each conv from the packed
+# operands exactly as the kernels index them; the int32 accumulators must
+# equal conv_s8's.
+
+ST_PR, ST_PC, ST_CR, ST_CC = 7, 8, 15, 17
+ST_IR, ST_IW, ST_KP = 35, 11, 176
+ST_ICP = 4 * ST_IW
+BT, BMID, BI = 14, 16, 18
+
+
+def _swz(r, chunk):
+    return (r << 6) | ((chunk ^ ((r >> 1) & 3)) << 4)
+
+
+def _frag_bytes():
+    """(g, h, t4, e) -> the A row (g + 8*(h % 2)) and byte within the
+    32-byte k-step (16*(h // 2) + 4*t4 + e) a lane's fragment holds."""
+    g, h, t4, e = np.meshgrid(np.arange(8), np.arange(4), np.arange(4),
+                              np.arange(4), indexing="ij")
+    return (g + 8 * (h % 2)).ravel(), (16 * (h // 2) + 4 * t4 + e).ravel()
+
+
+def _mma(a_at, b_at, rows, ksteps):
+    """acc[row, o] = sum over k-steps of the fragments the kernel loads:
+    ``a_at(row, kstep, kbyte)`` and ``b_at(o, kstep, kbyte)`` return the
+    int8 bytes at those coordinates (arrays of indices in, values out)."""
+    frow, fk = _frag_bytes()
+    acc = np.zeros((rows, 64), np.float64)   # exact: |acc| < 2^53
+    for mt in range(rows // 16):
+        for ks in range(ksteps):
+            A = np.zeros((16, 32))
+            A[frow, fk] = a_at(16 * mt + frow, ks, fk)
+            o, kb = np.meshgrid(np.arange(64), np.arange(32), indexing="ij")
+            B = b_at(o, ks, kb).astype(np.float64)       # (64, 32): col-major
+            acc[16 * mt:16 * mt + 16] += A @ B.T
+    return acc.astype(np.int64)
+
+
+def _stem_emulated(xq, wpack):
+    """The stem kernel's conv accumulators for every conv pixel of every
+    tile: the 3 x 35 x 11-word input patch from the 4-aligned column
+    ic0 - 3, the A tile gathered row by row in (c, ky, kx) order, W at the
+    176-byte pitch; -> (N, 64, H/2, H/2)."""
+    n, _, H, _ = xq.shape
+    R, Hc = H // 4, H // 2
+    tr, tc = -(-R // ST_PR), -(-R // ST_PC)
+    ws = np.zeros(64 * ST_KP, np.int8)
+    i = np.arange(64 * 160)
+    ws[(i // 160) * ST_KP + i % 160] = wpack.numpy().reshape(-1)
+    k = np.arange(147)
+    koff = ((k // 49) * ST_IR + (k // 7) % 7) * ST_ICP + k % 7
+    out = np.zeros((n, 64, Hc, Hc), np.int64)
+    seen = np.zeros((n, Hc, Hc), bool)
+    xp = np.pad(xq.numpy(), ((0, 0), (0, 0), (64, 64), (64, 64)))
+    for b in range(n):
+        for t in range(tr * tc):
+            pr0, pc0 = (t // tc) * ST_PR, (t % tc) * ST_PC
+            cr0, cc0 = 2 * pr0 - 1, 2 * pc0 - 1
+            ir0, iw0 = 2 * cr0 - 3, 2 * cc0 - 6
+            assert iw0 % 4 == 0
+            patch = xp[b, :, 64 + ir0:64 + ir0 + ST_IR,
+                       64 + iw0:64 + iw0 + ST_ICP]
+            iy = np.arange(ir0, ir0 + ST_IR)[:, None]
+            ix = np.arange(iw0, iw0 + ST_ICP)[None, :]
+            xs = np.where((iy >= 0) & (iy < H) & (ix >= 0) & (ix < H),
+                          patch, 0).astype(np.int8).reshape(-1)
+            A = np.zeros(256 * ST_KP, np.int8)
+            tid = np.arange(ST_CR * ST_CC)
+            base = 2 * (tid // ST_CC) * ST_ICP + 2 * (tid % ST_CC) + 3
+            A[(tid * ST_KP)[:, None] + k[None, :]] = xs[base[:, None]
+                                                        + koff[None, :]]
+            acc = _mma(lambda r, ks, kb: A[r * ST_KP + 32 * ks + kb],
+                       lambda o, ks, kb: ws[o * ST_KP + 32 * ks + kb],
+                       256, 5)
+            for row in tid:
+                cy, cx = cr0 + row // ST_CC, cc0 + row % ST_CC
+                if 0 <= cy < Hc and 0 <= cx < Hc:
+                    out[b, :, cy, cx] = acc[row]
+                    seen[b, cy, cx] = True
+    assert seen.all()
+    return out
+
+
+def _tile_bytes(plane, y0, x0, side):
+    """The channel-last swizzled tile of (64, R, R) ``plane`` whose pixel 0
+    sits at (y0, x0), zero outside the plane."""
+    R = plane.shape[1]
+    buf = np.zeros(side * side * 64, np.int8)
+    p = np.arange(side * side)
+    gy, gx = y0 + p // side, x0 + p % side
+    ok = (gy >= 0) & (gy < R) & (gx >= 0) & (gx < R)
+    c = np.arange(64)
+    vals = np.zeros((side * side, 64), np.int8)
+    vals[ok] = plane[:, gy[ok], gx[ok]].T
+    buf[_swz(p[:, None], c[None, :] >> 4) + (c[None, :] & 15)] = vals
+    return buf
+
+
+def _block_weights(wpack):
+    """The block kernel's resident weights: int4 k of (9, 64, 64) to
+    ``_swz(k >> 2, k & 3)``."""
+    w = np.zeros(9 * 64 * 64, np.int8)
+    src = wpack.numpy().reshape(-1, 16)
+    kk = np.arange(src.shape[0])
+    w[_swz(kk >> 2, kk & 3)[:, None] + np.arange(16)[None, :]] = src
+    return w
+
+
+def _block_conv_emulated(src_tile, side, px, ws):
+    """conv3x3_mma: rows read source pixel px[row] + dy*side + dx at tap
+    (dy, dx); B row tap*64 + o at the kernel's (g >> 1) & 3 swizzle."""
+    def a_at(r, ks, kb):
+        t, kh = ks // 2, ks % 2
+        p = px[r] + (t // 3) * side + t % 3
+        c = 32 * kh + kb
+        return src_tile[_swz(p, c >> 4) + (c & 15)]
+
+    def b_at(o, ks, kb):
+        # the ldmatrix lane of row (o & 7) + 8*(pair half) reads chunk
+        # 2*kh + kb // 16 at the swizzle of its row, ((o & 7) >> 1) & 3
+        t, kh = ks // 2, ks % 2
+        g, chunk = o & 7, 2 * kh + kb // 16
+        return ws[(t * 64 + o) * 64 + ((chunk ^ ((g >> 1) & 3)) << 4)
+                  + (kb & 15)]
+    return _mma(a_at, b_at, len(px), 18)
+
+
+def _block_emulated(y, z, w1p, w2p):
+    """The block kernel's conv1 accumulators over each 16 x 16 mid tile (of
+    y) and conv2's over each 14 x 14 output tile (of the plane z in the mid
+    tile's place), written back into (N, 64, R, R) planes."""
+    n, _, R, _ = y.shape
+    tiles = -(-R // BT)
+    ws1, ws2 = _block_weights(w1p), _block_weights(w2p)
+    a1 = np.zeros(y.shape, np.int64)
+    a2 = np.zeros(y.shape, np.int64)
+    m = np.minimum(np.arange(208), BT * BT - 1)
+    px1 = np.array([(mt * BI + r) for mt in range(16) for r in range(16)])
+    px2 = (m // BT) * BMID + m % BT
+    for b in range(n):
+        for t in range(tiles * tiles):
+            y0, x0 = (t // tiles) * BT, (t % tiles) * BT
+            xin = _tile_bytes(y[b].numpy(), y0 - 2, x0 - 2, BI)
+            acc1 = _block_conv_emulated(xin, BI, px1, ws1)
+            mid = _tile_bytes(z[b].numpy(), y0 - 1, x0 - 1, BMID)
+            acc2 = _block_conv_emulated(mid, BMID, px2, ws2)
+            for row in range(256):
+                gy, gx = y0 - 1 + row // 16, x0 - 1 + row % 16
+                if 0 <= gy < R and 0 <= gx < R:
+                    a1[b, :, gy, gx] = acc1[row]
+            for row in range(BT * BT):
+                gy, gx = y0 + row // BT, x0 + row % BT
+                if gy < R and gx < R:
+                    a2[b, :, gy, gx] = acc2[row]
+    return a1, a2
+
+
+@pytest.mark.parametrize("H", [112, 200])
+def test_stem_packing_and_fragments_equal_conv_s8(H):
+    """The stem's (64, 160) packed weights, read through the A-tile gather
+    and the fragment layout, give conv_s8's accumulators at every conv
+    pixel (H = 200: R = 50 is a multiple of neither tile side)."""
+    rng = np.random.default_rng(31 + H)
+    xq = torch.as_tensor(rng.integers(-127, 128, (2, 3, H, H), dtype=np.int8))
+    wq = torch.as_tensor(rng.integers(-127, 128, (64, 3, 7, 7),
+                                      dtype=np.int8))
+    wpack = tst._pack_stem(wq)
+    assert wpack.shape == (64, tst.STEM_K) and wpack.dtype == torch.int8
+    assert torch.equal(wpack[:, :147], wq.reshape(64, 147))
+    assert not wpack[:, 147:].any()
+    ref = tst.conv_s8(xq, wq, (2, 2), (3, 3, 3, 3)).numpy()
+    np.testing.assert_array_equal(_stem_emulated(xq, wpack), ref)
+
+
+@pytest.mark.parametrize("R", [28, 50])
+def test_block_packing_and_fragments_equal_conv_s8(R):
+    """The blocks' [tap][o][c] packed weights, resident in the swizzled
+    layout, read through the implicit-im2col fragments of both convs, give
+    conv_s8's accumulators (R = 28: whole 14 x 14 tiles; R = 50: ragged)."""
+    rng = np.random.default_rng(37 + R)
+    y = torch.as_tensor(rng.integers(-127, 128, (2, 64, R, R), dtype=np.int8))
+    z = torch.as_tensor(rng.integers(0, 128, (2, 64, R, R), dtype=np.int8))
+    w1, w2 = (torch.as_tensor(rng.integers(-127, 128, (64, 64, 3, 3),
+                                           dtype=np.int8)) for _ in range(2))
+    w1p, w2p = tst._pack_block(w1), tst._pack_block(w2)
+    assert w1p.shape == (9, 64, 64) and w1p.is_contiguous()
+    for t in range(9):
+        assert torch.equal(w1p[t], w1[:, :, t // 3, t % 3])
+    a1, a2 = _block_emulated(y, z, w1p, w2p)
+    pad = (1, 1, 1, 1)
+    np.testing.assert_array_equal(a1, tst.conv_s8(y, w1, (1, 1), pad).numpy())
+    np.testing.assert_array_equal(a2, tst.conv_s8(z, w2, (1, 1), pad).numpy())
+
+
+def _cpu_plan(requant="fxp", out_scale=None):
+    rng = np.random.default_rng(41)
+    _, ws, bs, blocks = _inputs(rng, 64, 1)
+    args = _torch_args(ws, bs, blocks)
+    bw = [tuple(args[2 + i:6 + i]) for i in range(0, len(args) - 2, 4)]
+    return tst._fold(args[0], args[1], bw, out_scale, torch.device("cpu"),
+                     requant, True)
+
+
+@pytest.mark.parametrize("requant", ["fxp", "trunc"])
+def test_fold_carries_packed_weights(requant):
+    plan = _cpu_plan(requant)
+    assert torch.equal(plan.ws_pack, tst._pack_stem(plan.ws))
+    for b in plan.blocks:
+        assert torch.equal(b.w1p, tst._pack_block(b.w1))
+        assert torch.equal(b.w2p, tst._pack_block(b.w2))
+        assert b.w1p.is_contiguous() and b.w2p.is_contiguous()
+
+
+def test_run_hands_packed_weights_and_repacks_nothing(monkeypatch):
+    """_run on the kernel path passes the plan's packed tensors themselves
+    to the wrappers (mocked: this machine has no card) and permutes, pads
+    or packs no weight on the way."""
+    plan = _cpu_plan()
+    calls = []
+
+    def stem(xq, wq, table, mode, wpack=None):
+        calls.append(("stem", wpack))
+        n, _, h, _ = xq.shape
+        return torch.zeros((n, 64, h // 4, h // 4), dtype=torch.int8)
+
+    def block(y, w1, q1, w2, e2, sx, last, trunc, w1p=None, w2p=None):
+        calls.append(("block", w1p, w2p))
+        return torch.zeros(y.shape, dtype=torch.bfloat16 if last
+                           else torch.int8)
+
+    def refuse(*a, **k):
+        raise AssertionError("a weight was repacked on the program path")
+
+    monkeypatch.setattr(tst, "stem_pool_requant", stem)
+    monkeypatch.setattr(tst, "basic_block", block)
+    for name in ("_pack_stem", "_pack_block"):
+        monkeypatch.setattr(tst, name, refuse)
+    monkeypatch.setattr(torch.Tensor, "permute", refuse)
+    monkeypatch.setattr(tst.F, "pad", refuse)
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (2, 3, 64, 64)).astype(np.float32))
+    y = tst._run(x, plan)
+    assert y.shape == (2, 64, 16, 16)
+    assert calls[0] == ("stem", plan.ws_pack) and calls[0][1] is plan.ws_pack
+    assert len(calls) == 1 + len(plan.blocks)
+    for (kind, w1p, w2p), b in zip(calls[1:], plan.blocks):
+        assert kind == "block" and w1p is b.w1p and w2p is b.w2p
+
+
+def test_wrappers_check_packed_operands():
+    """A packed operand is checked like the others; on the CPU the wrapper
+    still runs the plain version."""
+    plan = _cpu_plan()
+    b = plan.blocks[0]
+    y = torch.as_tensor(np.random.default_rng(4).integers(
+        0, 128, (1, 64, 16, 16), dtype=np.int8))
+    ref = tst.basic_block_plain(y, b.w1, b.q1, b.w2, b.e2, b.sx)
+    out = tst.basic_block(y, b.w1, b.q1, b.w2, b.e2, b.sx, w1p=b.w1p,
+                          w2p=b.w2p)
+    assert torch.equal(out, ref)
+    with pytest.raises(ValueError, match="both"):
+        tst.basic_block(y, b.w1, b.q1, b.w2, b.e2, b.sx, w1p=b.w1p)
+    with pytest.raises(ValueError):
+        tst.basic_block(y, b.w1, b.q1, b.w2, b.e2, b.sx, w1p=b.w1,
+                        w2p=b.w2p)
+    with pytest.raises(TypeError):
+        tst.basic_block(y, b.w1, b.q1, b.w2, b.e2, b.sx,
+                        w1p=b.w1p.float(), w2p=b.w2p)
+    with pytest.raises(ValueError):     # an odd side: no eligible stage has one
+        tst.basic_block(y[:, :, :15, :15].contiguous(), b.w1, b.q1, b.w2,
+                        b.e2, b.sx)
+    xq = torch.as_tensor(np.random.default_rng(5).integers(
+        -127, 128, (1, 3, 64, 64), dtype=np.int8))
+    assert torch.equal(
+        tst.stem_pool_requant(xq, plan.ws, plan.stem_table, "fxp",
+                              wpack=plan.ws_pack),
+        tst.stem_pool_requant_plain(xq, plan.ws, plan.stem_table))
+    with pytest.raises(ValueError):
+        tst.stem_pool_requant(xq, plan.ws, plan.stem_table, "fxp",
+                              wpack=plan.ws_pack[:, :148].contiguous())
