@@ -5,7 +5,7 @@
 1. prints the card (nvidia-smi name and power limit), builds the port's
    CUDA kernels from ``planer_tpu_torch/csrc`` with nvcc (sm_90a) and
    prints each kernel's registers and spill bytes from ``-Xptxas=-v``
-   (a stage64 kernel that spills fails the run);
+   (a stage64 or dense_q kernel that spills fails the run);
 2. kernel phase: at the main path's 224 shapes, batch 1 and 64, and at the
    ragged 200 (R = 50, a multiple of no tile side), batch 2, calls each
    stage64 wrapper in every form on card tensors, with the packed weights
@@ -44,9 +44,12 @@
    version (f32 outputs max|d|/max|y| <= 1e-5; bf16 outputs within one bf16
    ulp plus the f32 sum-order term, see ``gemm_bound``) at the nine GEMM
    shapes of path 4 at batch 1 and 64, a dense-shaped call, an f32-x call
-   and a ``matmul_q`` call; times kernel, plain version and, as a labelled
-   neighbour, cuBLAS ``torch.mm`` of bf16 x and pre-dequantized bf16 weights
-   (no scale, no bias);
+   and a ``matmul_q`` call, each with the kernel's tile plan (the card's,
+   which must equal ``kernel_plan``'s); at batch 64 times the kernel on the
+   device (CUDA graph replay) and as a wrapper call, the plain version and,
+   as a labelled neighbour, cuBLAS ``torch.mm`` of bf16 x and
+   pre-dequantized bf16 weights (no scale, no bias), with the achieved
+   GB/s or TFLOP/s;
 8. path 4: weight-only INT8 ResNet-50 at 224 (``quantize("int8")``, bf16
    compute) with ``torch_ops._PALLAS_CONV1X1`` on: batch 1, 8 and 64, exactly
    26 dense_q launches per forward and none of stage64 or stagen, the
@@ -377,6 +380,7 @@ def gemm_phase(torch, tg, form="int8"):
     and three more calls, with int8 or (``form="fp8"``) float8_e4m3fn
     weights; times at batch 64.  Returns per-shape rows."""
     from planer_tpu_torch.ops import fp8
+    from planer_tpu_torch.ops.kernels.gemm_study import graph_ms
     if torch.backends.cuda.matmul.allow_tf32:
         raise SystemExit("TF32 matmuls are on: the plain version would round")
     dev = torch.device("cuda")
@@ -413,6 +417,11 @@ def gemm_phase(torch, tg, form="int8"):
                "matmul_q", 0)]
     rows = []
     for name, m, kd, n, dt, how, cnt in cases:
+        plan = tg.kernel_plan(m, n, kd)
+        if tg.device_plan(m, n, kd) != plan:
+            raise SystemExit(f"{key}[{name}]: the kernel's plan "
+                             f"{tg.device_plan(m, n, kd)} is not kernel_plan's "
+                             f"{plan}")
         q, s, bias = weights(n, kd)
         x = torch.randn(m, kd, device=dev).to(dt)
         B = bias.to(dt) if how == "dense" else None
@@ -443,14 +452,22 @@ def gemm_phase(torch, tg, form="int8"):
         ops = 2 * m * n * kd
         b_ms, by = bound_ms(nbytes, ops, PEAK_BF16_FLOPS)
         row = {"shape": name, "per_forward": cnt, "max_abs_err": err,
-               "ms": cuda_ms(run, 20), "plain_ms": cuda_ms(plain, 5),
-               "neighbour_ms": cuda_ms(lambda: torch.mm(x, wdq.t()), 20),
+               "plan": {"pixels": plan[0], "channels": tg.KERNEL_BC,
+                        "tiles": plan[1], "blocks": plan[2]},
+               "ms": graph_ms(run), "call_ms": cuda_ms(run, 20),
+               "plain_ms": cuda_ms(plain, 5),
+               "neighbour_ms": graph_ms(lambda: torch.mm(x, wdq.t())),
                "bound_ms": b_ms, "bound_by": by, "bytes": nbytes, "ops": ops}
         rows.append(row)
-        log(f"  {key}[{name}] b64: kernel {row['ms']:.4f} ms, plain "
-            f"{row['plain_ms']:.4f}, bound {b_ms:.4f} by {by} "
-            f"({ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), neighbour "
-            f"(cuBLAS torch.mm, no scale or bias) {row['neighbour_ms']:.4f} ms")
+        rate = (f"{nbytes / row['ms'] / 1e6:.0f} GB/s" if by == "bytes" else
+                f"{ops / row['ms'] / 1e9:.1f} TFLOP/s")
+        log(f"  {key}[{name}] b64: tiles {plan[0]} px x {tg.KERNEL_BC} ch, "
+            f"{plan[1]} tiles on {plan[2]} blocks; kernel {row['ms']:.4f} ms "
+            f"on the device ({rate}; {row['call_ms']:.4f} ms a wrapper call "
+            f"with the host's launch work), plain {row['plain_ms']:.4f}, "
+            f"bound {b_ms:.4f} by {by} ({ops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB), neighbour (cuBLAS torch.mm, no scale "
+            f"or bias) {row['neighbour_ms']:.4f} ms")
     if form == "fp8":
         all_codes(torch, tg, fp8, dev)
     tg.LAUNCHES.clear()
@@ -483,10 +500,12 @@ def gemm_row(name, grows, launches, forwards, path):
     """The kernels-line row of a dense_q form: path 4's or 6's 26 launches
     of one b64 forward, summed over the shapes."""
     per_fwd = {k: sum(r[k] * r["per_forward"] for r in grows)
-               for k in ("ms", "plain_ms", "neighbour_ms", "bound_ms")}
-    log(f"{name} per b64 forward (26 launches): {per_fwd['ms']:.4f} ms "
-        f"(plain {per_fwd['plain_ms']:.4f}, bound {per_fwd['bound_ms']:.4f}, "
-        f"torch.mm neighbour {per_fwd['neighbour_ms']:.4f}); "
+               for k in ("ms", "call_ms", "plain_ms", "neighbour_ms",
+                         "bound_ms")}
+    log(f"{name} per b64 forward (26 launches): {per_fwd['ms']:.4f} ms on "
+        f"the device ({per_fwd['call_ms']:.4f} ms of wrapper calls), plain "
+        f"{per_fwd['plain_ms']:.4f}, bound {per_fwd['bound_ms']:.4f}, "
+        f"torch.mm neighbour {per_fwd['neighbour_ms']:.4f}; "
         f"{sum(r['ops'] * r['per_forward'] for r in grows) / 1e9:.1f} GFLOP")
     return {
         "name": name, "route": "cuda",
@@ -494,8 +513,8 @@ def gemm_row(name, grows, launches, forwards, path):
         "replaces": "planer_tpu/ops/pallas/gemm.py:56",
         "launches": launches, "forwards": forwards,
         "max_abs_err": max(r["max_abs_err"] for r in grows),
-        "ms": per_fwd["ms"], "plain_ms": per_fwd["plain_ms"],
-        "bound_ms": per_fwd["bound_ms"],
+        "ms": per_fwd["ms"], "call_ms": per_fwd["call_ms"],
+        "plain_ms": per_fwd["plain_ms"], "bound_ms": per_fwd["bound_ms"],
         "bound_by": "bytes" if sum(r["bound_by"] == "bytes" for r in grows)
         * 2 > len(grows) else "operations",
         "library_ms": None, "neighbour_ms": per_fwd["neighbour_ms"],
@@ -503,7 +522,9 @@ def gemm_row(name, grows, launches, forwards, path):
                      "pre-dequantized bf16 weights, without the scale and "
                      "the bias",
         "batch": 64, "per": f"the 26 launches of one b64 forward of {path}, "
-                            f"summed over the shapes",
+                            f"summed over the shapes; ms and neighbour_ms "
+                            f"device time (CUDA graph replay), call_ms the "
+                            f"wrapper calls with the host's launch work",
         "shapes": grows}
 
 
@@ -742,8 +763,8 @@ def main():
         for kern, regs, st_b, ld_b in ptxas_report(build.build_log(name)):
             log(f"  ptxas {name} {kern}: {regs} registers, {st_b} bytes "
                 f"spill stores, {ld_b} bytes spill loads")
-            if name == "stage64" and (st_b or ld_b):
-                raise SystemExit(f"stage64 {kern} spills registers")
+            if name in ("stage64", "gemm") and (st_b or ld_b):
+                raise SystemExit(f"{name} {kern} spills registers")
 
     # ---------------------------------------------------------- kernels
     stats, lib_stem, lib_block = kernel_phase(torch, st, F)

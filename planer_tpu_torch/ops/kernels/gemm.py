@@ -21,20 +21,26 @@ of two numerics, as the reference does:
 The gate decides the numerics, so the port takes the kernel branch on
 exactly the shapes where the TPU takes it.  It has no dtype term, and its
 VMEM estimate counts one byte per weight for both payloads.  Its tile sizes
-are TPU tiling and the kernel does not use them.
+are TPU tiling and the kernel does not use them: the kernel's own tiles
+are ``kernel_plan``'s (128 channels by 128 or 64 pixels, a persistent grid
+of one block per SM), which the C side computes the same way
+(``dense_q_plan`` in ``csrc/gemm.cu``).  The kernel reads x as bf16: the
+wrapper rounds f32 x to bf16 (round to nearest even, the reference's round
+in its kernel branch) and the kernel writes an f32 result.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from ..qtypes import QTensor
 
-__all__ = ["dense_q", "matmul_q", "tile_plan", "fallback_dense",
-           "dense_q_plain", "dense_q_kernel", "LAUNCHES"]
+__all__ = ["dense_q", "matmul_q", "tile_plan", "kernel_plan", "device_plan",
+           "fallback_dense", "dense_q_plain", "dense_q_kernel", "LAUNCHES"]
 
 # kernel launches ("dense_q": int8 weights, "dense_q[fp8]": e4m3 weights);
 # plain-version runs are not counted
@@ -43,6 +49,7 @@ LAUNCHES = collections.Counter()
 _VMEM_BUDGET = 12 * 1024 * 1024   # the reference's, part of its gate
 
 
+@functools.lru_cache(maxsize=4096)
 def tile_plan(M: int, N: int, Kd: int):
     """The reference's ``_tile_plan``: (bm, bn), or None where the kernel
     branch is not taken."""
@@ -56,6 +63,23 @@ def tile_plan(M: int, N: int, Kd: int):
     if vmem > _VMEM_BUDGET:
         return None
     return bm, bn
+
+
+H100_SMS = 132
+KERNEL_BC = 128       # channels per kernel tile
+
+
+def kernel_plan(M: int, N: int, Kd: int, sms: int = H100_SMS):
+    """The CUDA kernel's tile plan for a shape ``tile_plan`` admits:
+    (pixels per tile, tiles, blocks).  128-pixel tiles, or 64-pixel tiles
+    where 128-pixel ones would leave SMs idle (fewer tiles than SMs);
+    channels fastest in the tile order, one persistent block per SM.
+    ``csrc/gemm.cu``'s ``make_plan`` is the same function."""
+    tn = N // KERNEL_BC
+    t128, t64 = -(-M // 128) * tn, -(-M // 64) * tn
+    bp = 128 if t128 >= sms else 64
+    tiles = t128 if bp == 128 else t64
+    return bp, tiles, min(tiles, sms)
 
 
 def fallback_dense(x2d, K: QTensor, B=None):
@@ -90,6 +114,7 @@ def dense_q_plain(x2d, q, scale, B=None):
 # --------------------------------------------------------------------------
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
+# x's dtype -> the kernel's odtype code (the output and bias dtype)
 _XDTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # weight dtype -> (the kernel's wdtype code, the LAUNCHES key)
 _WDTYPES = {torch.int8: (0, "dense_q"),
@@ -103,24 +128,46 @@ def _lib():
         lib.dense_q.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                                 _VP]
         lib.dense_q.restype = _I
+        lib.dense_q_plan.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+        lib.dense_q_plan.restype = _I
         lib._planer_typed = True
     return lib
 
 
+def device_plan(M: int, N: int, Kd: int):
+    """The plan the built kernel takes on the current card (its C
+    ``dense_q_plan``): (pixels per tile, tiles, blocks)."""
+    plan = (_I * 3)()
+    err = _lib().dense_q_plan(M, N, Kd, plan)
+    if err:
+        raise RuntimeError(f"dense_q_plan({M}, {N}, {Kd}): CUDA error {err}")
+    return tuple(plan)
+
+
+def _stream(device):
+    """The raw handle of the current CUDA stream on ``device`` (a few
+    hundred ns, against microseconds for a ``torch.cuda.Stream`` object)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def _launch(x2d, q, scale, B):
-    """One kernel launch: (M, Kd) x in f32 or bf16, (N, Kd) int8 or e4m3
-    weights as they are (row n is the k-contiguous column n of the GEMM's
-    B)."""
+    """One kernel launch: (M, Kd) x in f32 or bf16 (read as bf16), (N, Kd)
+    int8 or e4m3 weights as they are (row n is the k-contiguous column n of
+    the GEMM's B); the result and the bias in x's dtype."""
     M, Kd = x2d.shape
     N = q.shape[0]
     wcode, key = _WDTYPES[q.dtype]
-    if x2d.data_ptr() % 16:       # 16-byte cp.async rows
-        x2d = x2d.clone()
-    out = torch.empty((M, N), dtype=x2d.dtype, device=x2d.device)
-    err = _lib().dense_q(x2d.data_ptr(), q.data_ptr(), scale.data_ptr(),
+    odt = x2d.dtype
+    xb = x2d.to(torch.bfloat16)
+    if xb.data_ptr() % 16:        # TMA needs 16-byte aligned bases
+        xb = xb.clone()
+    if q.data_ptr() % 16:
+        q = q.clone()
+    out = torch.empty((M, N), dtype=odt, device=x2d.device)
+    err = _lib().dense_q(xb.data_ptr(), q.data_ptr(), scale.data_ptr(),
                          B.data_ptr() if B is not None else None,
-                         out.data_ptr(), M, N, Kd, _XDTYPES[x2d.dtype], wcode,
-                         torch.cuda.current_stream(x2d.device).cuda_stream)
+                         out.data_ptr(), M, N, Kd, _XDTYPES[odt], wcode,
+                         _stream(x2d.device))
     if err:
         raise RuntimeError(f"dense_q launch failed: CUDA error {err}")
     LAUNCHES[key] += 1

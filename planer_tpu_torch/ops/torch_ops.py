@@ -35,14 +35,19 @@ from .padding import resolve_conv_pads, resolve_pool_pads
 from .qtypes import QTensor
 
 __all__ = ["conv2d", "dense", "maxpool", "global_average_pool", "relu",
-           "add", "batchnorm", "flatten", "reshape", "stage64", "stagen",
-           "return_",
+           "add", "batchnorm", "flatten", "reshape", "shape_of", "stage64",
+           "stagen", "return_",
            "conv_s8", "quantize", "scalar", "to_dtype"]
 
 
 # opt-in, as in the JAX package (jax_ops._PALLAS_CONV1X1): route quantized
 # 1x1 stride-1 ungrouped convs that reach no s8 path to the dense_q GEMM
 _PALLAS_CONV1X1 = False
+
+# as in the JAX package (jax_ops._STACK_CONV), read at call time: off, a
+# quantized 3x3 conv with at most 64 outputs and C < 128 takes dequant +
+# float conv in place of the stacked s8 form
+_STACK_CONV = True
 
 
 # --------------------------------------------------------------------------
@@ -194,7 +199,7 @@ def _conv2d(x, K, B=None, group=1, strides=(1, 1), dilations=(1, 1),
     # s8 branch below depends on it, since stacking a float conv changes its
     # TPU layout and not its sums
     stackable = (
-        len(kshape) == 4 and kshape[2:] == (3, 3)
+        _STACK_CONV and len(kshape) == 4 and kshape[2:] == (3, 3)
         and kshape[0] <= 64 and int(group) == 1
         and strides == (1, 1) and dilations == (1, 1)
         and pads == (1, 1, 1, 1) and x.ndim == 4
@@ -348,6 +353,12 @@ def reshape(x, shp):
         if v == 0:
             shp[i] = x.shape[i]
     return x.reshape(shp)
+
+
+def shape_of(x):
+    """The int64 shape of x as a host (numpy) value, as the reference's
+    ``numpy_ops.shape_of``."""
+    return np.asarray(tuple(x.shape), dtype=np.int64)
 
 
 def flatten(x, axis=1):

@@ -474,7 +474,7 @@ def optimize(net) -> dict:
     return report
 
 
-def fuse_stagen(net) -> int:
+def fuse_stagen(net, max_cout: int | None = None) -> int:
     """Fuse ResNet body stages — a strided/projected entry block plus its
     following identity blocks at constant width, basic OR bottleneck — into
     ``stagen`` ops, which run as the fused stage kernel
@@ -482,7 +482,8 @@ def fuse_stagen(net) -> int:
     entry stem + C=64 basic blocks) and after quantization; like stage64 the
     op is precision-agnostic and decomposes to exactly the replaced chain
     for unsupported geometry.  Opt-in: ``Net.quantize(fuse="all")`` runs it,
-    the default fuse does not, as in the JAX package.
+    the default fuse does not, as in the JAX package.  ``max_cout``: a
+    stage whose entry block's output width exceeds it is not fused.
 
     Returns the number of stages fused.
     """
@@ -598,6 +599,9 @@ def fuse_stagen(net) -> int:
             continue
         x0 = flow[i].src[0]
         n, srcs, desc, y, co, cm = m
+        if max_cout is not None and co > max_cout:
+            i += 1
+            continue
         blocks, all_srcs = [desc], list(srcs)
         drop = list(range(i, i + n))
         j = i + n

@@ -82,6 +82,9 @@ _reg("batchnorm", tops.batchnorm)
 # shape
 _reg("reshape", tops.reshape, static_args=(1,))
 _reg("flatten", tops.flatten)
+# the int64 shape as a host value; the program records it as a 'shape'
+# application, so it never reaches the device
+_reg("shape", tops.shape_of)
 
 # control
 _reg("return", tops.return_)

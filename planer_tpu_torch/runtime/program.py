@@ -5,9 +5,11 @@ PyTorch runs eagerly, so there is nothing to trace or compile; the program
 keeps the tracer's decisions and runs the flow on the device:
 
 1. **Staticness analysis** (``analyze``, the tracer's own): every op
-   application is *static* (all inputs derivable from weights and shapes)
-   or *dynamic*.  Static applications are folded on the host each call and
-   never reach the device; the analysis is per application, not per name.
+   application is *static* (all inputs derivable from weights and shapes),
+   a *shape* read (``shape`` of any tensor: a host value, even where the
+   tensor itself is dynamic) or *dynamic*.  Static and shape applications
+   are folded on the host each call and never reach the device; the
+   analysis is per application, not per name.
 2. **Cut point**: the first application that cannot run with static shapes
    (a data-dependent op, a dynamic shape operand).  The JAX package runs
    the rest on a numpy host tail; that tail is not ported yet, so such a
@@ -45,7 +47,7 @@ class AppRecord:
 
     edge: int
     li: int
-    kind: str                      # 'static' | 'dyn'
+    kind: str                      # 'shape' | 'static' | 'dyn'
     arg_static: tuple[bool, ...]   # per positional input: read from static env?
 
 
@@ -75,6 +77,11 @@ def analyze(graph: Graph) -> GraphPlan:
             spec = get_op(layer.op)
             src = edge.src if li == 0 else edge.dst
             in_static = tuple(s in static for s in src)
+            if layer.op == "shape":
+                # a tensor's shape is known without its values: static
+                records.append(AppRecord(i, li, "shape", in_static))
+                static.update(edge.dst)
+                continue
             if all(in_static):
                 records.append(AppRecord(i, li, "static", in_static))
                 static.update(edge.dst)
@@ -238,6 +245,11 @@ class Program:
             layer = self._layers[edge.layers[rec.li]]
             spec = get_op(layer.op)
             src = edge.src if rec.li == 0 else edge.dst
+
+            if rec.kind == "shape":
+                v = env[src[0]] if src[0] in env else senv[src[0]]
+                _store(senv, env, edge, np.asarray(tuple(v.shape), np.int64))
+                continue
 
             if rec.kind == "static":
                 out = spec.fn(*[_host(senv[s]) for s in src], **layer.kwargs)

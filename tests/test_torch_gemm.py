@@ -38,6 +38,7 @@ from planer_tpu.quant import make_quant_program as j_program
 
 import planer_tpu_torch as pt
 from planer_tpu_torch.ops import torch_ops as tops
+from planer_tpu_torch.ops import fp8
 from planer_tpu_torch.ops.kernels import gemm as tg
 from planer_tpu_torch.ops.qtypes import QTensor as TQ
 
@@ -249,6 +250,262 @@ def test_fallback_rounds_dequantized_weights_to_x_dtype():
     assert (out == 1.0).all()
     kern = _np(tg.dense_q_plain(tx, tk.q, tk.scale))
     assert (kern == 1.0078125).all()
+
+
+# ------------------------------------------- kernel steps, copied in numpy
+#
+# csrc/gemm.cu runs only on the card.  These are numpy copies of its steps
+# (decode, TMA swizzles, wgmma fragments and descriptors, the epilogue's
+# staging and TMA store, the host tile plan) that must give known answers;
+# a change of layout in the kernel goes with a change of these copies.
+
+KBC, KBK = 128, 64     # csrc/gemm.cu: channels per tile, k per stage
+R50_GEMMS = [(256, 128, 56), (512, 128, 28), (128, 512, 28), (512, 256, 28),
+             (1024, 256, 14), (256, 1024, 14), (1024, 512, 14),
+             (2048, 512, 7), (512, 2048, 7)]
+
+
+def _byte_perm(a, b, sel):
+    """CUDA's __byte_perm on uint32 values."""
+    src = (np.asarray(b, np.uint64) << np.uint64(32)) \
+        | np.asarray(a, np.uint64)
+    out = np.zeros(np.broadcast(a, b).shape, np.uint64)
+    for i in range(4):
+        k = np.uint64(8 * ((sel >> (4 * i)) & 7))
+        out |= ((src >> k) & np.uint64(0xFF)) << np.uint64(8 * i)
+    return out.astype(np.uint32)
+
+
+def _decode_int8(v):
+    """decode2<W_INT8>: a byte pair (byte 0 low) -> bf16x2 bits."""
+    u = v.astype(np.uint32) ^ np.uint32(0x8080)
+    bias = np.float32(8388736.0)                       # 2^23 + 128
+    f0 = _byte_perm(u, 0x4B000000, 0x7540).view(np.float32) - bias
+    f1 = _byte_perm(u, 0x4B000000, 0x7541).view(np.float32) - bias
+    return _byte_perm(f0.view(np.uint32), f1.view(np.uint32), 0x7632)
+
+
+def _bf16_bits(f):
+    """Round-to-nearest-even bf16 bits of float32 values."""
+    b = np.asarray(f, np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x7FFF + ((b >> 16) & 1)) >> 16
+    return b.astype(np.uint32)
+
+
+def _decode_e4m3(v):
+    """decode2<W_E4M3>: cvt.rn.f16x2.e4m3x2 (each byte's sign, 4-bit
+    exponent of bias 7, 3-bit mantissa, subnormal below exponent 1), f16 to
+    f32, then __floats2bfloat162_rn (byte 0 -> the low half)."""
+    def one(c):
+        c = c.astype(np.int64)
+        e, m = (c >> 3) & 15, c & 7
+        val = np.where(e == 0, m * 2.0 ** -9, (1 + m / 8.0) * 2.0 ** (e - 7))
+        val = np.where(c & 0x80, -val, val).astype(np.float16)
+        return _bf16_bits(val.astype(np.float32))
+    return one(v & 0xFF) | (one(v >> 8) << np.uint32(16))
+
+
+def test_int8_decode_is_exact():
+    """Every int8 value, in either byte of the pair, to the bf16 bits of the
+    same integer (exact: |v| <= 128 needs 8 significant bits)."""
+    b = np.arange(256, dtype=np.uint32)
+    v = b | (b[::-1] << 8)                     # every byte in both positions
+    got = _decode_int8(v)
+    ints = b.astype(np.uint8).view(np.int8).astype(np.float32)
+    want_lo = ints.view(np.uint32) >> 16
+    want_hi = ints[::-1].view(np.uint32) >> 16
+    assert (ints.view(np.uint32) & 0xFFFF == 0).all()      # exact in bf16
+    np.testing.assert_array_equal(got & 0xFFFF, want_lo)
+    np.testing.assert_array_equal(got >> 16, want_hi)
+    t = torch.as_tensor(ints).to(torch.bfloat16).view(torch.int16)
+    np.testing.assert_array_equal(want_lo, t.numpy().view(np.uint16))
+
+
+def test_e4m3_decode_is_exact():
+    """The 254 finite e4m3 codes, in either byte of the pair, to the bf16
+    bits of the host codec's decoded values."""
+    codes = np.array([c for c in range(256) if c & 0x7F != 0x7F], np.uint32)
+    assert codes.size == 254
+    got = _decode_e4m3(codes | (codes[::-1] << 8))
+    dec = fp8.decode(codes.astype(np.uint8)).astype(np.float32)
+    assert (dec.view(np.uint32) & 0xFFFF == 0).all()       # exact in bf16
+    np.testing.assert_array_equal(got & 0xFFFF, dec.view(np.uint32) >> 16)
+    np.testing.assert_array_equal(got >> 16,
+                                  dec[::-1].view(np.uint32) >> 16)
+
+
+def _sw128(off):
+    """TMA's 128-byte swizzle (and wgmma's) of byte offsets in a 1024-byte
+    aligned tile: 16-byte chunk bits 4-6 XOR bits 7-9."""
+    return off ^ (((off >> 7) & 7) << 4)
+
+
+def _sw64(off):
+    """TMA's 64-byte swizzle: bits 4-5 XOR bits 7-8."""
+    return off ^ (((off >> 7) & 3) << 4)
+
+
+def _emulate(xb, qv, s, b, odt, bp):
+    """dense_q_kernel<bp, odt> step by step on numpy arrays: xb (M, Kd)
+    bf16 values as f32, qv (N, Kd) the decoded weights, s (N,), b (N,) in
+    the output dtype or None.  Returns the output and how often each
+    element was stored."""
+    M, Kd = xb.shape
+    N = qv.shape[0]
+    es = 2 if odt == torch.bfloat16 else 4
+    piece_ch = 128 // es
+    tiles_n = N // KBC
+    out = np.zeros((M, N), np.float32)
+    stored = np.zeros((M, N), np.int64)
+    lane = np.arange(32)
+    g, t = lane >> 2, lane & 3
+    for tile in range(-(-M // bp) * tiles_n):
+        m0, n0 = (tile // tiles_n) * bp, (tile % tiles_n) * KBC
+        acc = np.zeros((KBC, bp), np.float64)            # (channels, pixels)
+        for kt in range(Kd // KBK):
+            k0 = kt * KBK
+            # the producer's TMA loads: x rows past M are zeros
+            xs = np.zeros(bp * 128 // 2, np.float32)     # bf16 slots
+            for r in range(min(bp, M - m0)):
+                for c in range(8):
+                    o = _sw128(r * 128 + 16 * c) // 2
+                    xs[o:o + 8] = xb[m0 + r, k0 + 8 * c:k0 + 8 * c + 8]
+            ws = np.zeros(KBC * KBK, np.float32)         # one byte a weight
+            for r in range(KBC):
+                for c in range(4):
+                    o = _sw64(r * 64 + 16 * c)
+                    ws[o:o + 16] = qv[n0 + r, k0 + 16 * c:k0 + 16 * c + 16]
+            for wg in range(2):
+                # A fragments read as consume() reads them
+                A = np.full((4, 64, 16), np.nan)
+                for w in range(4):
+                    r0 = 64 * wg + 16 * w + g
+                    wrow = r0 * KBK + 2 * t
+                    for st in range(4):
+                        c0 = wrow + ((st ^ ((r0 >> 1) & 3)) << 4)
+                        c1 = c0 + 8 * KBK
+                        for addr, dr, dk in ((c0, 0, 0), (c1, 8, 0),
+                                             (c0 + 8, 0, 8), (c1 + 8, 8, 8)):
+                            rows, ks = 16 * w + g + dr, 2 * t + dk
+                            assert np.isnan(A[st, rows, ks]).all()
+                            A[st, rows, ks] = ws[addr]       # byte 0: low k
+                            A[st, rows, ks + 1] = ws[addr + 1]
+                assert not np.isnan(A).any()
+                # B through the descriptor: start + 32 bytes per k16 step,
+                # 1024 bytes per 8 pixel rows, 128 per row, swizzled
+                n = np.arange(bp)[None, :]
+                for st in range(4):
+                    k = np.arange(16)[:, None]
+                    addr = 32 * st + (n // 8) * 1024 + (n % 8) * 128 + 2 * k
+                    B = xs[_sw128(addr) // 2]
+                    acc[64 * wg:64 * wg + 64] += A[st].astype(np.float64) @ B
+        acc32 = acc.astype(np.float32)
+        # epilogue: each thread's accumulator fragment, scaled, cast, plus
+        # bias, put into the swizzled staging pieces
+        stage = np.full(bp * KBC, np.nan, np.float32)
+        for wg in range(2):
+            for w in range(4):
+                r0 = 64 * wg + 16 * w + g
+                for j in range(bp // 8):
+                    p = 8 * j + 2 * t
+                    for i, (pp, cc) in enumerate(((p, r0), (p + 1, r0),
+                                                  (p, r0 + 8),
+                                                  (p + 1, r0 + 8))):
+                        # the wgmma D layout of acc[4 j + i]
+                        row = 16 * w + g + 8 * (i // 2) + 64 * wg
+                        col = 8 * j + 2 * t + (i % 2)
+                        assert (row == cc).all() and (col == pp).all()
+                        y = torch.as_tensor(acc32[row, col]
+                                            * s[n0 + cc]).to(odt)
+                        if b is not None:
+                            y = (y.float() + torch.as_tensor(
+                                b[n0 + cc]).to(odt).float()).to(odt)
+                        byte = (cc % piece_ch) * es
+                        o = (cc // piece_ch) * (bp * 128) + pp * 128 \
+                            + (byte ^ ((pp & 7) << 4))
+                        assert np.isnan(stage[o // es]).all()
+                        stage[o // es] = y.float().numpy()
+        assert not np.isnan(stage).any()
+        # the TMA stores: one per piece, rows past M clipped
+        for h in range(KBC // piece_ch):
+            for r in range(min(bp, M - m0)):
+                for c in range(8):
+                    o = h * bp * 128 + _sw128(r * 128 + 16 * c)
+                    col = n0 + h * piece_ch + c * (16 // es)
+                    out[m0 + r, col:col + 16 // es] = \
+                        stage[o // es:o // es + 16 // es]
+                    stored[m0 + r, col:col + 16 // es] += 1
+    return out, stored
+
+
+@pytest.mark.parametrize("M,N,Kd,dtype,bias,bp", [
+    (200, 256, 256, "bfloat16", True, 64),
+    (130, 128, 128, "float32", True, 128),
+    (77, 256, 128, "bfloat16", False, 128)])
+def test_kernel_layouts_give_plain_result(M, N, Kd, dtype, bias, bp):
+    """The swizzled TMA tiles, the A fragments read from the weight tile, the
+    B descriptor walk, the accumulator fragments, the staging swizzle and
+    the TMA stores together give dense_q_plain's (M, N) result at a ragged
+    M, every element stored once."""
+    rng = np.random.default_rng(M + bp)
+    q, s, b = _weights(rng, N, Kd)
+    x = rng.standard_normal((M, Kd)).astype(np.float32)
+    tx = torch.as_tensor(x).to(getattr(torch, dtype))
+    odt = tx.dtype
+    tb = torch.as_tensor(b).to(odt) if bias else None
+    xb = tx.to(torch.bfloat16).float().numpy()
+    out, stored = _emulate(xb, q.astype(np.float32), s.reshape(-1),
+                           b if bias else None, odt, bp)
+    assert (stored == 1).all()
+    ref = tg.dense_q_plain(tx, torch.as_tensor(q), torch.as_tensor(s), tb)
+    _assert_close(torch.as_tensor(out).to(odt), ref, dtype, tb)
+
+
+@pytest.mark.parametrize("batch", [1, 64])
+def test_kernel_plan_covers_path4_shapes(batch):
+    """kernel_plan (the copy of csrc/gemm.cu's make_plan) at path 4's nine
+    shapes: tiles cover M, N and Kd exactly once, every tile goes to one
+    block of the persistent grid, and at batch 64 there are at least 132
+    tiles (one full wave on the H100) with no K split."""
+    want64 = [(128, 1568), (128, 392), (128, 1568), (128, 784), (128, 196),
+              (128, 784), (128, 392), (64, 196), (128, 400)]
+    got = []
+    for kd, n, side in R50_GEMMS:
+        M = batch * side * side
+        assert tg.tile_plan(M, n, kd) is not None
+        bp, tiles, grid = tg.kernel_plan(M, n, kd)
+        got.append((bp, tiles))
+        tiles_n, tiles_m = n // KBC, -(-M // bp)
+        assert tiles == tiles_m * tiles_n and grid == min(tiles, 132)
+        ids = np.arange(tiles)
+        m0, n0 = (ids // tiles_n) * bp, (ids % tiles_n) * KBC
+        assert len(set(zip(m0.tolist(), n0.tolist()))) == tiles
+        assert m0.max() < M <= m0.max() + bp and n0.max() + KBC == n
+        rows = np.zeros(tiles_m * bp, np.int64)
+        for a in np.unique(m0):
+            rows[a:a + bp] += 1
+        assert (rows[:M] == 1).all()
+        # block b takes tiles b, b + grid, ...: each tile once
+        owner = np.concatenate([np.arange(blk, tiles, grid)
+                                for blk in range(grid)])
+        assert np.array_equal(np.sort(owner), ids)
+        # K: whole stages of 64, an even count (the double-buffered loop)
+        assert kd % KBK == 0 and (kd // KBK) % 2 == 0
+        if batch == 64:
+            assert tiles >= 132
+    if batch == 64:
+        assert got == want64
+
+
+def test_kernel_plan_wide_and_narrow():
+    """Where 128-pixel tiles would leave SMs idle the plan takes 64; the
+    SM count is a parameter (the C side reads the card's)."""
+    assert tg.kernel_plan(3136, 512, 2048) == (64, 196, 132)
+    assert tg.kernel_plan(3136, 512, 2048, sms=64) == (128, 100, 64)
+    assert tg.kernel_plan(8, 128, 128) == (64, 1, 1)
+    assert tg.kernel_plan(16896, 128, 128) == (128, 132, 132)
+    assert tg.kernel_plan(16895, 128, 128) == (128, 132, 132)
+    assert tg.kernel_plan(16768, 128, 128) == (64, 262, 132)
 
 
 # ------------------------------------------------------------- conv route

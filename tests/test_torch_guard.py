@@ -263,14 +263,36 @@ def test_gemm_fp8_launch_failure_raises(monkeypatch):
                 seen.append(a)
                 return 700                              # illegal address
     monkeypatch.setattr(tg, "_lib", lambda: Lib)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(tg, "_stream", lambda device: 0)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         tg._launch(x, q8, s.reshape(-1), None)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         tg._launch(x, q, s.reshape(-1), None)
     assert [a[8:10] for a in seen] == [(1, 1), (1, 0)]    # xdtype, wdtype
     assert not tg.LAUNCHES
+
+
+def test_gemm_f32_x_reaches_the_kernel_as_bf16(monkeypatch):
+    """f32 x goes to the kernel rounded to bf16 (a new tensor), with the
+    output-dtype code 0 and an f32 output; bf16 x goes as it is, code 1."""
+    x, q, s = _gemm_args()
+    seen = []
+
+    class Lib:
+        class dense_q:                                  # noqa: N801
+            def __new__(cls, *a):
+                seen.append(a)
+                return 0
+    monkeypatch.setattr(tg, "_lib", lambda: Lib)
+    monkeypatch.setattr(tg, "_stream", lambda device: 0)
+    xf = x.float()
+    out = tg._launch(xf, q, s.reshape(-1), None)
+    assert out.dtype == torch.float32 and seen[-1][8:10] == (0, 0)
+    assert seen[-1][0] != xf.data_ptr()
+    out = tg._launch(x, q, s.reshape(-1), None)
+    assert out.dtype == torch.bfloat16 and seen[-1][8:10] == (1, 0)
+    assert seen[-1][0] == x.data_ptr()
+    tg.LAUNCHES.clear()
 
 
 def test_gemm_kernel_failures_raise_instead_of_falling_back(monkeypatch):
@@ -292,8 +314,7 @@ def test_gemm_kernel_failures_raise_instead_of_falling_back(monkeypatch):
             def __new__(cls, *a):
                 return 700                              # illegal address
     monkeypatch.setattr(tg, "_lib", lambda: Lib)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(tg, "_stream", lambda device: 0)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         tg._launch(x, q, s.reshape(-1), None)
     assert not tg.LAUNCHES
