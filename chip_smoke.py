@@ -5,7 +5,7 @@
 1. prints the card (nvidia-smi name and power limit), builds the port's
    CUDA kernels from ``planer_tpu_torch/csrc`` with nvcc (sm_90a) and
    prints each kernel's registers and spill bytes from ``-Xptxas=-v``
-   (a stage64 or dense_q kernel that spills fails the run);
+   (a kernel that spills fails the run);
 2. kernel phase: at the main path's 224 shapes, batch 1 and 64, and at the
    ragged 200 (R = 50, a multiple of no tile side), batch 2, calls each
    stage64 wrapper in every form on card tensors, with the packed weights
@@ -22,25 +22,38 @@
    kernels' plain versions and with the float32 executor; then times the
    step at batch 1 and 64.
 
-4. stagen kernel phase: the ``fuse="all"`` body-stage kernel against its
-   plain version (bit-exact) on the real folded tables and activations of
-   built nets, at the three fused 224 geometries (ResNet-18 ``stagen_0``,
-   ResNet-50 ``stagen_0`` and ``stagen_1``) and batch 1 and 64, plus two
-   narrow stages whose channels the wrapper pads; times kernel, plain
+4. stagen kernel phase: the ``fuse="all"`` body-stage kernels (one block
+   kernel launch per residual block; the per-conv kernel, one launch per
+   conv, for a block too wide for the block kernel's shared memory)
+   against their plain version (bit-exact) on the real folded tables and
+   activations of built nets, at the three fused 224 geometries (ResNet-18
+   ``stagen_0``, ResNet-50 ``stagen_0`` and ``stagen_1``) and batch 1 and
+   64, on ResNet-50's ``stagen_0`` of a 200 image (R = 50, which no
+   14-pixel tile divides) at batch 2, on ResNet-18's two fused stages at 448
+   (R = 56 and 28; layer3's entry runs conv by conv) at batch 1 and 64, and
+   on two narrow stages whose channels the wrapper pads; checks each
+   block's shared-memory size as the wrapper computes it against the
+   library's; at batch 64 times the
+   stage on the device (CUDA graph replay) and as wrapper calls, the plain
    version and, as a labelled neighbour that is not the same function, the
-   port's decomposed chain of the same stage;
+   port's decomposed chain of the same stage, with the achieved int8 TOP/s;
 5. path 2: INT8 ResNet-50 at 224, ``quantize(fuse="all")``: answers at
    batch 1, 8 and 64 with the counters reset just before, checks 1 stem and,
-   for each of the 2 fused stages, one launch per conv per forward (counted
-   where each conv kernel launches), stagen's ``FALLOFF`` of exactly 2
+   for each of the 2 fused stages, one launch per block per forward
+   (counted where the block kernel launches), stagen's ``FALLOFF`` of exactly 2
    geometry fall-offs per forward (layers 3-4), the program against itself
    on the plain versions, and prints (without a gate: the fused-stage
    arithmetic is far from the float model) the gap to the float32
    executor; the same model with the default fuse (the bf16 stem kernel)
    is held to the float32 executor; step times of both programs;
 6. path 3: INT8 ResNet-18 at 224, ``quantize(fuse="all")`` (the basic-block
-   stage): batch 1 and 64, launches, ``FALLOFF`` and the plain-version leg;
-7. dense_q kernel phase: the weight-only GEMM kernel against its plain
+   stage): batch 1 and 64, launches, ``FALLOFF``, the plain-version leg and
+   step times;
+7. path 7: INT8 ResNet-18 at 448, ``quantize(fuse="all")``: batch 1 and 64,
+   the stagen launches of both fused stages (``stagen_conv`` for layer3's
+   entry), ``FALLOFF`` of the stem stage and layer4 by geometry, the
+   plain-version leg and step times;
+8. dense_q kernel phase: the weight-only GEMM kernel against its plain
    version (f32 outputs max|d|/max|y| <= 1e-5; bf16 outputs within one bf16
    ulp plus the f32 sum-order term, see ``gemm_bound``) at the nine GEMM
    shapes of path 4 at batch 1 and 64, a dense-shaped call, an f32-x call
@@ -50,20 +63,20 @@
    as a labelled neighbour, cuBLAS ``torch.mm`` of bf16 x and
    pre-dequantized bf16 weights (no scale, no bias), with the achieved
    GB/s or TFLOP/s;
-8. path 4: weight-only INT8 ResNet-50 at 224 (``quantize("int8")``, bf16
+9. path 4: weight-only INT8 ResNet-50 at 224 (``quantize("int8")``, bf16
    compute) with ``torch_ops._PALLAS_CONV1X1`` on: batch 1, 8 and 64, exactly
    26 dense_q launches per forward and none of stage64 or stagen, the
    program against itself on the plain versions and against the float32
    executor; printed, not gated: the gap to the unquantized float model
    (the int8 quantization error) and the step times with the route on and
    off, in turns;
-9. path 5: the main path's ResNet-18 under ``stage64.REQUANT = "trunc"``
+10. path 5: the main path's ResNet-18 under ``stage64.REQUANT = "trunc"``
    and under ``stage64.SPLIT = False``: batch 1 and 64, 1 stem and 2 block
    launches per forward in the trunc forms, ``FALLOFF`` empty, the plain leg
    bit-identical and the float32-executor leg.  The trunc block kernel is
    held against its plain version in phase 2;
-10. the dense_q kernel phase again with float8_e4m3fn weights (the calls
-   and bounds of phase 7), plus one call whose weight bytes enumerate all
+11. the dense_q kernel phase again with float8_e4m3fn weights (the calls
+   and bounds of phase 8), plus one call whose weight bytes enumerate all
    254 finite e4m3 codes against an identity x, which must give the
    decoded weights exactly; then path 6: weight-only FP8 ResNet-50 at 224
    (``quantize("fp8")``, bf16 compute) with the 1x1 route on: batch 1, 8
@@ -75,8 +88,8 @@
    (the fp8 quantization error itself) and the step times.
 
 ``python3 chip_smoke.py --profile DIR`` adds a torch.profiler pass over the
-steps of the main path, of both ResNet-50 programs of path 2 and of paths 4
-and 6: the device's busy share and time by kernel, with the full tables
+steps of the main path, of both ResNet-50 programs of path 2 and of paths
+3, 4 and 6: the device's busy share and time by kernel, with the full tables
 written to ``DIR/profile_<program>_b<batch>.txt``.
 
 Every failure raises and exits non-zero.  The line before the last is one
@@ -535,16 +548,18 @@ def gemm_row(name, grows, launches, forwards, path):
 PLAIN = {op: {"plain": True} for op in ("stage64", "stagen", "conv", "dense")}
 
 
-def build_net(models, calibrate, synthetic_images, model, fuse):
-    """An INT8 model at 224 as a user builds it: optimize, calibrate on 4
-    synthetic images, quantize with static scales, bf16 compute."""
+def build_net(models, calibrate, synthetic_images, model, fuse, side=224):
+    """An INT8 model as a user builds it: optimize, calibrate on 4 synthetic
+    images of the side it will serve, quantize with static scales, bf16
+    compute."""
     t0 = time.perf_counter()
     net = getattr(models, model)(seed=SEED, device="cuda")
     net.optimize()
-    calibrate(net, synthetic_images(4, (3, 224, 224), seed=11, batch=2))
+    calibrate(net, synthetic_images(4, (3, side, side), seed=11, batch=2))
     net.quantize("int8", activations="static", fuse=fuse)
     net.astype_compute("bfloat16")
-    log(f"{model} fuse={fuse!r} built: {time.perf_counter() - t0:.1f} s, "
+    log(f"{model} fuse={fuse!r} at {side} built: "
+        f"{time.perf_counter() - t0:.1f} s, "
         f"{sum(l.op == 'stagen' for l in net.graph.layers)} stagen ops")
     return net
 
@@ -555,9 +570,12 @@ def capture_stages(sg, net, x):
     seen, orig = [], sg.stagen
 
     def spy(xs, *w, blocks=None, cache=None, **kw):
+        fell = sum(sg.FALLOFF.values())
         y = orig(xs, *w, blocks=blocks, cache=cache, **kw)
         plan = cache.get(xs.device) if cache is not None else None
-        if plan is not None:
+        # the cache outlives the call: a stage that fell off this time
+        # (another input side) keeps an earlier side's plan
+        if plan is not None and sum(sg.FALLOFF.values()) == fell:
             seen.append((xs, w, blocks, plan))
         return y
 
@@ -566,6 +584,29 @@ def capture_stages(sg, net, x):
     prog(x)
     sg.stagen, prog.op_overrides = orig, {}
     return seen
+
+
+def stage_launches(plan):
+    """{launch key: launches} of one stagen_stage call: one block kernel
+    launch per fused block, one per-conv launch per conv of the others."""
+    want = {}
+    for blk in plan.blocks:
+        key, n = f"stagen_block:{plan.tag}", 1
+        if not blk.fused:
+            key = f"stagen_conv:{plan.tag}"
+            n = len(blk.convs) + (blk.proj is not None)
+        want[key] = want.get(key, 0) + n
+    return want
+
+
+def path_launches(stage_rows, forwards):
+    """{launch key: launches} a path's driven run must count: each stage's
+    launches per call, per forward."""
+    want = {}
+    for r in stage_rows:
+        for k, v in r["per_call"].items():
+            want[k] = want.get(k, 0) + v * forwards
+    return want
 
 
 def stage_work(plan, n, h):
@@ -627,27 +668,50 @@ def narrow_stages(torch, sg):
 
 
 def stagen_phase(torch, sg, nets, synthetic_images):
-    """The stagen kernel against its plain version, bit for bit, on every
-    fused stage of the built nets at batch 1 and 64 (the program's own
-    folded tables and the stage's real input), and on two narrow stages;
-    times at batch 64."""
+    """The stagen kernels against their plain version, bit for bit, on every
+    fused stage of the built nets (the program's own folded tables and the
+    stage's real input): ResNet-18 and ResNet-50 at 224, batch 1 and 64,
+    ResNet-50's stagen_0 of a 200 image at batch 2 (R = 50: ragged tiles),
+    ResNet-18 at 448 (layer3's entry too wide to fuse: the per-conv kernel)
+    at batch 1 and 64, and two narrow stages; each call with one block
+    kernel launch per fused block and one per-conv launch per conv of the
+    others, and every block's shared-memory layout as the wrapper computes
+    it; times at batch 64."""
+    from planer_tpu_torch.ops.kernels.gemm_study import graph_ms
     rows = {}
-    for b in (1, 64):
-        x = next(synthetic_images(b, (3, 224, 224), seed=200 + b, batch=b))
+    for b, h, models in ((1, 224, ("resnet18", "resnet50")),
+                         (64, 224, ("resnet18", "resnet50")),
+                         (2, 200, ("resnet50",)),
+                         (1, 448, ("resnet18@448",)),
+                         (64, 448, ("resnet18@448",))):
+        x = next(synthetic_images(b, (3, h, h), seed=200 + b, batch=b))
         x = torch.as_tensor(x, device="cuda")
         cases = []
-        for model, net in nets.items():
+        for model in models:
             for i, (xs, w, blocks, plan) in enumerate(
-                    capture_stages(sg, net, x)):
+                    capture_stages(sg, nets[model], x)):
                 name = (f"stagen[{model} stagen_{i}: {plan.tag}, "
                         f"R{xs.shape[2] // plan.blocks[0].stride}]")
                 cases.append((name, xs, w, blocks, plan))
+        if h == 200 and [c[0].endswith(", R50]") for c in cases] != [True]:
+            raise SystemExit(f"the ragged case fused {[c[0] for c in cases]}")
         if b == 1:
             cases += narrow_stages(torch, sg)
         for name, xs, w, blocks, plan in cases:
+            for blk in plan.blocks:
+                args = (blk.form, *blk.widths(), blk.proj is not None,
+                        blk.last)
+                if sg._lib().stagen_block_smem(*args) != sg._block_smem(*args):
+                    raise SystemExit(f"{name}: the wrapper's layout size "
+                                     f"{sg._block_smem(*args)} is not the "
+                                     f"kernel's for {args}")
             xq = sg.stagen_prologue(xs, plan.s_in)
+            sg.LAUNCHES.clear()
             out = sg.stagen_stage(xq, plan)
             torch.cuda.synchronize()
+            if dict(sg.LAUNCHES) != stage_launches(plan):
+                raise SystemExit(f"{name}: launches {dict(sg.LAUNCHES)}, "
+                                 f"want {stage_launches(plan)}")
             ref = sg.stagen_plain(xq, plan)
             d = float((out.float() - ref.float()).abs().max())
             ok = out.dtype == ref.dtype == torch.bfloat16 \
@@ -658,27 +722,30 @@ def stagen_phase(torch, sg, nets, synthetic_images):
             if not ok:
                 raise SystemExit(f"kernel {name} disagrees with its plain "
                                  f"version")
-            if name.startswith("narrow"):
+            if name.startswith("narrow") or h == 200:
                 continue
-            r = rows.setdefault(name, {
-                "tag": plan.tag, "err": 0.0,
-                "convs": sum(len(blk.convs) + (blk.proj is not None)
-                             for blk in plan.blocks)})
+            r = rows.setdefault(name, {"tag": plan.tag, "err": 0.0,
+                                       "per_call": stage_launches(plan)})
             r["err"] = max(r["err"], d)
             if b == 64:
                 nbytes, ops = stage_work(plan, b, xs.shape[2])
                 r.update(
-                    ms=cuda_ms(lambda: sg.stagen_stage(xq, plan), 20),
+                    ms=graph_ms(lambda: sg.stagen_stage(xq, plan)),
+                    call_ms=cuda_ms(lambda: sg.stagen_stage(xq, plan), 20),
                     plain_ms=cuda_ms(lambda: sg.stagen_plain(xq, plan), 5),
                     neighbour_ms=cuda_ms(
                         lambda: sg.decomposed(xs, *w, blocks=blocks), 10),
                     bytes=nbytes, ops=ops)
                 bms, by = bound_ms(nbytes, ops)
-                log(f"  {name} b64: kernel {r['ms']:.4f} ms, plain "
-                    f"{r['plain_ms']:.4f} ms, bound {bms:.4f} ms by {by} "
-                    f"({ops / 1e9:.1f} GOP, {nbytes / 1e6:.1f} MB); "
-                    f"neighbour, not the same function: the port's "
+                r["tops"] = ops / r["ms"] / 1e9
+                log(f"  {name} b64: kernel {r['ms']:.4f} ms on the device "
+                    f"({r['tops']:.1f} TOP/s, bound / time "
+                    f"{bms / r['ms']:.3f}; {r['call_ms']:.4f} ms as wrapper "
+                    f"calls), plain {r['plain_ms']:.4f} ms, bound {bms:.4f} "
+                    f"ms by {by} ({ops / 1e9:.1f} GOP, {nbytes / 1e6:.1f} "
+                    f"MB); neighbour, not the same function: the port's "
                     f"decomposed chain of the stage {r['neighbour_ms']:.4f} ms")
+    sg.LAUNCHES.clear()
     return rows
 
 
@@ -739,7 +806,7 @@ def main():
     ap.add_argument("--profile", metavar="DIR",
                     help="add a torch.profiler pass over the steps of the "
                     "main path, of both ResNet-50 programs of path 2 and of "
-                    "paths 4 and 6, and write their tables to DIR")
+                    "paths 3, 4 and 6, and write their tables to DIR")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -763,7 +830,7 @@ def main():
         for kern, regs, st_b, ld_b in ptxas_report(build.build_log(name)):
             log(f"  ptxas {name} {kern}: {regs} registers, {st_b} bytes "
                 f"spill stores, {ld_b} bytes spill loads")
-            if name in ("stage64", "gemm") and (st_b or ld_b):
+            if st_b or ld_b:
                 raise SystemExit(f"{name} {kern} spills registers")
 
     # ---------------------------------------------------------- kernels
@@ -797,6 +864,8 @@ def main():
     from planer_tpu_torch.ops.kernels import stagen as sg
     nets = {m: build_net(models, calibrate_act_scales, synthetic_images, m,
                          "all") for m in ("resnet18", "resnet50")}
+    nets["resnet18@448"] = build_net(models, calibrate_act_scales,
+                                     synthetic_images, "resnet18", "all", 448)
     net50d = build_net(models, calibrate_act_scales, synthetic_images,
                        "resnet50", None)
     srows = stagen_phase(torch, sg, nets, synthetic_images)
@@ -805,13 +874,13 @@ def main():
     # path 2: ResNet-50, fuse="all", batch 1, 8 and 64
     net50 = nets["resnet50"]
     answers, fwd2, (l64, f64, lgn2, fgn) = drive(net50, requests, counters)
-    r50 = [r for name, r in srows.items() if "resnet50" in name]
+    r50 = [r for name, r in srows.items()
+           if name.startswith("stagen[resnet50 ")]
     check_counts("path 2 stage64 launches", l64,
                  {"stem_pool_requant[bf16]": fwd2})
     check_counts("path 2 stage64 falloff", f64, {})
-    # each of the 2 fused stages launches its convs once per forward
-    check_counts("path 2 stagen conv launches", lgn2, {
-        f"stagen_conv:{r['tag']}": r["convs"] * fwd2 for r in r50})
+    # each of the 2 fused stages launches once per block per forward
+    check_counts("path 2 stagen block launches", lgn2, path_launches(r50, fwd2))
     check_counts("path 2 stagen falloff", fgn, {"geometry": 2 * fwd2})
     leg1_50 = plain_leg(net50, requests, answers,
                         "path 2 kernels vs plain stage64/stagen (same program)")
@@ -840,19 +909,45 @@ def main():
     net18 = nets["resnet18"]
     req3 = {b: requests[b] for b in (1, 64)}
     answers3, fwd3, (l64, f64, lgn3, fgn) = drive(net18, req3, counters)
-    r18 = [r for name, r in srows.items() if "resnet18" in name]
+    r18 = [r for name, r in srows.items()
+           if name.startswith("stagen[resnet18 ")]
     check_counts("path 3 stage64 launches", l64, {
         "stem_pool_requant": fwd3, "basic_block": fwd3,
         "basic_block_last": fwd3})
     check_counts("path 3 stage64 falloff", f64, {})
-    check_counts("path 3 stagen conv launches", lgn3, {
-        f"stagen_conv:{r['tag']}": r["convs"] * fwd3 for r in r18})
+    check_counts("path 3 stagen block launches", lgn3, path_launches(r18, fwd3))
     check_counts("path 3 stagen falloff", fgn, {"geometry": 2 * fwd3})
     leg1_18 = plain_leg(net18, req3, answers3,
                         "path 3 kernels vs plain stage64/stagen (same program)")
     gap18 = agreement([(net18(x), net18(x, engine="oracle")) for x in imgs],
                       "path 3 fuse='all' vs float32 executor (printed, not "
                       "gated)", float("inf"), need_margin_agree=False)
+    steps18 = step_times(torch, net18, req3, "path 3 resnet18 fuse='all'",
+                         card)
+    if args.profile:
+        profile_steps(torch, net18.program, req3, card, args.profile,
+                      "resnet18_fuse_all")
+
+    # path 7: ResNet-18 at 448, fuse="all": layer2 (R=56) fused block by
+    # block, layer3 (R=28) with its entry block conv by conv (too wide for
+    # the block kernel's shared memory) and its identity block fused; the
+    # stem stage and layer4 fall off by geometry
+    net448 = nets["resnet18@448"]
+    req7 = {b: next(synthetic_images(b, (3, 448, 448), seed=300 + b,
+                                     batch=b)) for b in (1, 64)}
+    answers7, fwd7, (l64, f64, lgn7, fgn) = drive(net448, req7, counters)
+    r448 = [r for name, r in srows.items()
+            if name.startswith("stagen[resnet18@448 ")]
+    check_counts("path 7 stage64 launches", l64, {})
+    check_counts("path 7 stage64 falloff", f64, {"geometry": fwd7})
+    check_counts("path 7 stagen launches", lgn7, path_launches(r448, fwd7))
+    if not any(k.startswith("stagen_conv:") for k in lgn7):
+        raise SystemExit("path 7: the per-conv kernel did not run")
+    check_counts("path 7 stagen falloff", fgn, {"geometry": fwd7})
+    leg1_7 = plain_leg(net448, req7, answers7,
+                       "path 7 kernels vs plain stagen (same program)")
+    steps7 = step_times(torch, net448, req7, "path 7 resnet18 fuse='all' "
+                        "at 448", card)
 
     # ------------------------------------- dense_q kernel and path 4
     from planer_tpu_torch.ops import torch_ops as tops
@@ -1015,23 +1110,28 @@ def main():
             f"achieved at b{n}")
     for name, r in srows.items():
         b_ms, by = bound_ms(r["bytes"], r["ops"])
+        lgn, fwd = ((lgn2, fwd2) if "resnet50" in name else
+                    (lgn7, fwd7) if "@448" in name else (lgn3, fwd3))
+        keys = {k: lgn[k] for k in r["per_call"]}
         rows.append({
             "name": name, "route": "cuda",
             "source": "planer_tpu_torch/csrc/stagen.cu",
             "replaces": "planer_tpu/ops/pallas/stagen.py:157",
-            "launches": (lgn2 if "resnet50" in name else lgn3)[
-                f"stagen_conv:{r['tag']}"],
-            "forwards": fwd2 if "resnet50" in name else fwd3,
-            "max_abs_err": r["err"], "ms": r["ms"],
+            "launch_keys": keys, "launches": sum(keys.values()),
+            "forwards": fwd,
+            "max_abs_err": r["err"], "ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": by,
+            "tops": r["tops"], "bound_over_time": b_ms / r["ms"],
             "library_ms": None, "neighbour_ms": r["neighbour_ms"],
             "neighbour": "not the same function: the port's decomposed chain "
                          "of the stage (torch._int_mm W8A8 convs where "
                          "C_in >= 128, cuDNN bf16 convs below)",
-            "batch": n})
-        log(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+            "batch": n, "per": "one stage call at b64; ms device time (CUDA "
+                                "graph replay), call_ms wrapper calls"})
+        log(f"{name}: {r['ms']:.4f} ms on the device ({r['call_ms']:.4f} "
+            f"as wrapper calls; plain {r['plain_ms']:.4f}, bound "
             f"{b_ms:.4f} by {by}, decomposed neighbour "
-            f"{r['neighbour_ms']:.4f}) at b{n}")
+            f"{r['neighbour_ms']:.4f}) at b{n}, {r['tops']:.1f} TOP/s")
     rows.append(gemm_row("dense_q", grows, lq4["dense_q"], fwd4, "path 4"))
     rows.append(gemm_row("dense_q[fp8]", grows8, lq6["dense_q[fp8]"], fwd6,
                          "path 6"))
@@ -1048,7 +1148,8 @@ def main():
         f"path 2 plain p99 {leg1_50[0]:.6g}, fuse='all' executor gap p99 "
         f"{gap50[0]:.6g}, default-fuse executor p99 {leg3_50[0]:.6g}; "
         f"path 3 plain p99 {leg1_18[0]:.6g}, executor gap p99 "
-        f"{gap18[0]:.6g}; resnet50 steps fuse='all' {steps50}, default "
+        f"{gap18[0]:.6g}, steps {steps18} ms; path 7 plain p99 "
+        f"{leg1_7[0]:.6g}, steps {steps7} ms; resnet50 steps fuse='all' {steps50}, default "
         f"{steps50d} ms; total {time.perf_counter() - t_all:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": rows}), flush=True)

@@ -5,86 +5,737 @@
 // projection) per grid step with every plane in VMEM.  A stage does not fit
 // in one SM's 227 KB of shared memory (ResNet-50 layer1 is 800 KB of int8
 // per image), so here the wrapper (ops/kernels/stagen.py) launches this
-// fused conv-epilogue kernel once per conv of the stage, on int8 NHWC planes
-// it owns.  Each launch is an implicit GEMM: M = output pixels, N = output
-// channels, K = taps x input channels, s8 x s8 -> s32 on the tensor cores
-// (mma.sync m16n8k32), then one of the reference's epilogues on the int32
-// accumulators (EPI):
-//   0  trunc-fold requant of a post-ReLU plane: clamp(acc*f + b, 0, 127.99)
-//      truncated to int8 (b carries the folded +0.5);
-//   1  the projection residual: clamp(floor(acc*f + b), -127, 127) to int8;
-//   2  a block's final sum (acc*f + b) + res*sx with the int8 residual,
-//      clipped and truncated to int8;
-//   3  the same sum in the stage's last block: ReLU, bfloat16, written in
-//      the public NCHW layout.
-// The float arithmetic rounds each step in the reference's order
-// (__fmul_rn/__fadd_rn, which nvcc does not contract into FMAs), so every
-// plane equals the plain PyTorch version (stagen_plain) bit for bit.
+// kernel once per residual block: only a block's input and output cross
+// device memory, and the block's intermediate planes (t1 and t2 of a
+// bottleneck, the mid plane of a basic block, the requantized projection
+// residual) live in shared memory, per output tile.
 //
-// What bounds it on the H100: the convs of a stage are GEMM-shaped with
-// K = 64-1152 and N = 64-512; at batch 64 a stage of ResNet-18/50 at 224
-// is 53-132 GOP (2 per int8 MAC) against 26-116 MB of int8 input, weights
-// and bf16 output, so it is operation-bound at the int8 tensor-core rate
-// (1979 TOP/s: 27-67 us) with the whole stage on chip, and
-// bytes-bound for the 1x1 convs on their own once every intermediate plane
-// makes a round trip through device memory.  This first version moves each
-// intermediate plane through device memory (L2 holds most of them at small
-// batch) and feeds the tensor cores through mma.sync from a 3-stage cp.async
-// ring; wgmma with TMA, and keeping the 1x1 -> 3x3 -> 1x1 chain on chip,
-// are the later steps (measured times: PERF.md).
+// What it computes, each step rounded in the reference's order
+// (__fmul_rn/__fadd_rn, which nvcc does not contract), so every plane equals
+// the plain PyTorch version (stagen_plain) bit for bit:
+//   t1, t2, mid      clamp(acc*f + b, 0, 127.99) truncated to int8 (b holds
+//                    the folded +0.5); a pixel outside the image is 0: it is
+//                    the next conv's zero padding, not an epilogue of zeros;
+//   projection       clamp(floor(acc*f + b), -127, 127) to int8;
+//   block sum        (acc*f + b) + res*sx, clipped and truncated to int8, or
+//                    in the stage's last block ReLU'd to bf16, NCHW.
 //
-// Layouts: activations int8 NHWC with C a multiple of 64 (the wrapper pads
-// with zero channels); weights int8 [O][tap][C] with O a multiple of 64;
-// f, b float32 [O]; the residual int8 NHWC at the output's shape.  Every
-// launch is on the caller's stream, allocates nothing, and the C entry point
-// returns cudaGetLastError() for the wrapper to check.
+// What bounds it on the H100: at batch 64 a stage of ResNet-18/50 at 224 is
+// 53-132 GOP of int8 MACs against 26-116 MB of input, weights and output, so
+// it is operation-bound at the int8 tensor-core rate (1979 TOP/s) once the
+// intermediate planes stay on chip.  Design:
+//   * a persistent grid (one 512-thread block per SM) walks output tiles
+//     (14 x 14 pixels; 7 x 14 for the strided bottleneck entry).  A tile's
+//     input region (the halo the block's chain of convs needs, zero outside
+//     the image) is loaded into shared memory with cp.async (in a stage's
+//     first block, from the stage's int8 NCHW codes, a byte per thread: no
+//     transposed copy of the input); an identity block streams the next
+//     tile's region in, slab by slab, as soon as the last pass that reads a
+//     slab (its residual) is done.  Then the chain
+//     runs: each conv an implicit GEMM (M = the tile's pixels, N = 64
+//     output channels per pass, K = taps x 64-channel slabs) on
+//     mma.sync.m16n8k32 s8 x s8 -> s32, each of 16 warps taking up to two
+//     m-tiles x 32 channels, fed by ldmatrix from channel-last planes whose
+//     16-byte chunk j of pixel row p sits at chunk j ^ ((p >> 1) & 3), so 8
+//     consecutive rows read at one chunk cover all 32 banks;
+//   * the first conv runs on the halo the 3x3 after it needs (the 16 x 16
+//     region of a 14 x 14 tile: 1.31x its work), as stage64's block kernel;
+//   * a stride-2 conv reads its source plane in the TPU's phase order (four
+//     (y & 1, x & 1) planes, planer_tpu/ops/pallas/stagen.py:_s2d_taps), so
+//     every tap reads unit-stride rows;
+//   * the weights stream through a ring of NB 4 KB slices (64 outputs x 64
+//     input channels each), one bulk copy per slice completing on an
+//     mbarrier.  The host packs every slice of the block, pre-swizzled, in
+//     the exact order the kernel consumes them
+//     (ops/kernels/stagen.py:_pack_stream), so the stream is one contiguous
+//     buffer read cyclically, tile after tile;
+//   * the last 1x1 runs in passes of 64 output channels; the projection of
+//     an entry block is computed first for the same 64 channels and
+//     requantized into shared memory, so one int32 accumulator is live;
+//   * each pass's output is staged in shared memory (channel-last int8 rows,
+//     or channel-major bf16 for the NCHW plane) and written as 16-byte rows
+//     (int8 NHWC) or pixel pairs (bf16 NCHW).
+// numpy copies of every layout and address are in tests/test_torch_stagen.py.
+//
+// A block whose planes do not fit in shared memory at these tiles (the wide
+// stages: ResNet-50 layers 3-4, ResNet-18 layer 3's entry and layer 4, where
+// the input side makes them eligible) runs as a chain of conv_kernel
+// launches instead, one per conv, on int8 NHWC planes in device memory: an
+// implicit GEMM on mma.sync s8 from a 3-stage cp.async ring, with one of the
+// four epilogues above (EPI).  The wrapper picks the route per block by
+// stagen_block_smem, the layout both share with ops/kernels/stagen.py.
+//
+// Layouts: x int8 NHWC (n, h, h, cin), or in a stage's first block the
+// stage's int8 NCHW codes, read in place; out int8 NHWC (n, r, r, cout) or
+// bf16 NCHW (n, cout, r, r); every width a multiple of 64 (zero channels
+// pad the narrow ones); tab float32 (f, b) rows per conv in chain order, the
+// projection last.  The launch is on the caller's stream, allocates nothing,
+// and the C entry point returns the first CUDA error for the wrapper to check.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 128;            // output pixels per block
-constexpr int BN = 64;             // output channels per block
-constexpr int BK = 64;             // K bytes per pipeline stage
-constexpr int THREADS = 128;       // 4 warps, each 32 pixels x 64 channels
-constexpr int LDS = BK + 16;       // 80-byte smem rows: conflict-free fragments
-constexpr int A_BYTES = BM * LDS;  // 10240
-constexpr int B_BYTES = BN * LDS;  // 5120
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-constexpr int NSTAGE = 3;
-static_assert(NSTAGE * STAGE_BYTES <= 48 * 1024, "static shared memory");
+enum Form { BOT1 = 0, BAS1 = 1, BAS2 = 2, BOT2 = 3 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;     // 0 bytes read: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+constexpr int THREADS = 512;          // 16 warps, each up to 2 m-tiles x 32 channels
+constexpr int NB = 6;                 // weight ring depth
+constexpr int SLICE = 64 * 64;        // one weight slice: 64 outputs x 64 input channels
+constexpr int SP = 200;               // bf16 staging pitch per channel (elements)
+constexpr int SMEM_MAX = 232448;
+
+// Tile geometry of each block form.  Coordinates: (y0, x0) is the output
+// tile's first pixel; OUT = TH * TW output pixels; the input region X holds
+// XPIX pixels per 64-channel slab; T1 (bottleneck t1 or basic mid) holds
+// C1ROWS pixels, one per row of the first conv.
+//   BOT1  bottleneck, stride 1: X = t1 = the 16 x 16 halo at (y0-1, x0-1)
+//   BAS1  basic, stride 1: X = 18 x 18 at (y0-2, x0-2), mid 16 x 16 at (y0-1, x0-1)
+//   BAS2  basic, stride 2: X = four 17 x 17 phase planes of the 33 x 33
+//         input region at (2y0-3, 2x0-3); mid as BAS1
+//   BOT2  bottleneck, stride 2 on the 3x3: X = t1 = four 8 x 15 phase
+//         planes of the 15 x 29 input region at (2y0-1, 2x0-1)
+template <int FORM> struct Geo;
+template <> struct Geo<BOT1> {
+  static constexpr int TH = 14, TW = 14, XPIX = 256, C1ROWS = 256;
+};
+template <> struct Geo<BAS1> {
+  static constexpr int TH = 14, TW = 14, XPIX = 324, C1ROWS = 256;
+};
+template <> struct Geo<BAS2> {
+  static constexpr int TH = 14, TW = 14, XPIX = 4 * 289, C1ROWS = 256;
+};
+template <> struct Geo<BOT2> {
+  static constexpr int TH = 7, TW = 14, XPIX = 4 * 120, C1ROWS = 480;
+};
+
+// input-region pixel p -> image coordinates (input side); false for the
+// pad pixels of a phase plane
+template <int FORM>
+__device__ __forceinline__ bool x_pixel(int p, int y0, int x0, int& gy, int& gx) {
+  if (FORM == BOT1) {
+    gy = y0 - 1 + p / 16, gx = x0 - 1 + p % 16;
+  } else if (FORM == BAS1) {
+    gy = y0 - 2 + p / 18, gx = x0 - 2 + p % 18;
+  } else {
+    constexpr int PP = FORM == BAS2 ? 289 : 120, PW = FORM == BAS2 ? 17 : 15;
+    constexpr int RH = FORM == BAS2 ? 32 : 14, RW = FORM == BAS2 ? 32 : 28;
+    const int pl = p / PP, pos = p % PP;
+    const int ry = 2 * (pos / PW) + (pl >> 1), rx = 2 * (pos % PW) + (pl & 1);
+    const int oy = FORM == BAS2 ? 2 * y0 - 3 : 2 * y0 - 1;
+    const int ox = FORM == BAS2 ? 2 * x0 - 3 : 2 * x0 - 1;
+    gy = oy + ry, gx = ox + rx;
+    return ry <= RH && rx <= RW;
+  }
+  return true;
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// first conv: GEMM row r -> source pixel in X, and tap t's offset
+template <int FORM>
+__device__ __forceinline__ int c1_px(int r) {
+  if (FORM == BAS1) return (r / 16) * 18 + r % 16;
+  if (FORM == BAS2) return (r / 16) * 17 + r % 16;
+  return r;
+}
+template <int FORM>
+__device__ __forceinline__ int c1_off(int t) {
+  const int dy = t / 3, dx = t % 3;
+  if (FORM == BAS1) return dy * 18 + dx;
+  if (FORM == BAS2) return ((dy & 1) * 2 + (dx & 1)) * 289 + (dy >> 1) * 17 + (dx >> 1);
+  return 0;
+}
+// the 3x3 on T1 (bottleneck conv2, basic conv2): output pixel m -> source
+// pixel in T1, and tap t's offset
+template <int FORM>
+__device__ __forceinline__ int c2_px(int m) {
+  if (FORM == BOT2) return (m / 14) * 15 + m % 14;
+  return (m / 14) * 16 + m % 14;
+}
+template <int FORM>
+__device__ __forceinline__ int c2_off(int t) {
+  const int dy = t / 3, dx = t % 3;
+  if (FORM == BOT2) return ((dy & 1) * 2 + (dx & 1)) * 120 + (dy >> 1) * 15 + (dx >> 1);
+  return dy * 16 + dx;
+}
+// output pixel m -> the X pixel the projection and the identity residual read
+template <int FORM>
+__device__ __forceinline__ int res_px(int m) {
+  const int i = m / 14, j = m % 14;
+  if (FORM == BOT1) return (i + 1) * 16 + j + 1;
+  if (FORM == BAS1) return (i + 2) * 18 + j + 2;
+  if (FORM == BAS2) return 3 * 289 + (i + 1) * 17 + j + 1;
+  return 3 * 120 + i * 15 + j;
+}
+// T1 pixel r -> image coordinates (t1 at the input side, mid at the
+// output side); false where the pixel is not in the image
+template <int FORM>
+__device__ __forceinline__ bool t1_inside(int r, int y0, int x0, int H, int R) {
+  int gy, gx, side = H;
+  bool ok = true;
+  if (FORM == BOT1 || FORM == BOT2) {
+    ok = x_pixel<FORM>(r, y0, x0, gy, gx);
+  } else {
+    gy = y0 - 1 + r / 16, gx = x0 - 1 + r % 16, side = R;
+  }
+  return ok && gy >= 0 && gy < side && gx >= 0 && gx < side;
+}
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+// shared-memory layout, in bytes (host and device)
+struct Lay {
+  int t1, t2, res, stage, ring, bar, bytes;
+};
+template <int FORM>
+__host__ __device__ Lay layout(int cin, int cmid, int cout, bool proj, bool last) {
+  using G = Geo<FORM>;
+  constexpr bool BOT = FORM == BOT1 || FORM == BOT2;
+  constexpr int OUT = G::TH * G::TW;
+  const int stage = last ? 64 * SP * 2 : OUT * 64;
+  Lay l;
+  l.t1 = G::XPIX * cin;
+  int t1b = G::C1ROWS * (BOT ? cmid : cout);
+  if (BOT) {                       // staging takes t1's place once conv2 is done
+    t1b = t1b > stage ? t1b : stage;
+    l.stage = l.t1;
+  }
+  l.t2 = l.t1 + t1b;
+  l.res = l.t2 + (BOT ? OUT * cmid : 0);
+  int next = l.res + (proj ? OUT * 64 : 0);
+  if (!BOT) {                      // the mid plane is read by every pass of conv2
+    l.stage = next;
+    next += stage;
+  }
+  l.ring = next;
+  l.bar = next + NB * SLICE;        // 2 NB mbarriers
+  l.bytes = l.bar + 2 * NB * 8;
+  return l;
+}
 
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], const uint32_t b[2]) {
+// the slices a tile consumes, in the order _pack_stream packs them
+template <int FORM>
+__host__ __device__ int stream_slices(int cin, int cmid, int cout, bool proj) {
+  const int cs = cin / 64, ms = cmid / 64, os = cout / 64;
+  if (FORM == BOT1 || FORM == BOT2) {
+    const int groups = (Geo<FORM>::C1ROWS + 255) / 256;
+    return groups * ms * cs + 9 * ms * ms + os * ((proj ? cs : 0) + ms);
+  }
+  return os * 9 * cs + os * ((proj ? cs : 0) + 9 * os);
+}
+
+// ------------------------------------------------------------------ PTX
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ int8_t trunc_i8(float v) {
-  return static_cast<int8_t>(static_cast<int>(fminf(fmaxf(v, 0.f), 127.99f)));
+// four 8x8 b16 matrices: lanes 8j..8j+7 give the 16-byte rows of matrix j;
+// for int8 register j of lane l is the m16n8k32 fragment word of row l/4
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
+
+// 16 bytes global -> shared, zero-filled when !valid (0 bytes read)
+__device__ __forceinline__ void cp_async16(unsigned char* smem, const void* gmem, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// mbarriers by shared-window address
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// one bulk copy global -> shared that completes on `bar` (the arrive and
+// the byte count are posted first)
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// byte offset of 16-byte chunk `chunk` (0-3) of 64-byte pixel row p
+__device__ __forceinline__ int swz(int p, int chunk) {
+  return (p << 6) | ((chunk ^ ((p >> 1) & 3)) << 4);
+}
+
+__device__ __forceinline__ int trunc_code(float v) {
+  return (int)fminf(fmaxf(v, 0.f), 127.99f);
+}
+
+__device__ __forceinline__ float affine(int a, float f, float b) {
+  return __fadd_rn(__fmul_rn(__int2float_rn(a), f), b);
+}
+
+// The weight stream: slice j of the block's packed stream (j mod n) lands
+// in slot j % NB by one bulk copy that thread 0 issues, completing on the
+// slot's `full` mbarrier; each warp arrives on the slot's `empty` mbarrier
+// once its ldmatrix loads of the slice are done, and the copy of slice j
+// waits for slice j - NB's release.  NB - 1 slices are in flight, and only
+// warp 0 (which issues) waits for the slowest warp; the others run ahead
+// as far as the copies allow.  Every thread calls next() and release() for
+// every slice, in stream order.
+struct Ring {
+  uint32_t buf;                    // shared address: NB slots, then NB full, NB empty bars
+  const int8_t* w;
+  int n, k, issued, used;          // k = issued mod n
+  __device__ void issue() {
+    if (threadIdx.x == 0) {
+      const int slot = issued % NB;
+      if (issued >= NB) mbar_wait(bars() + 8 * (NB + slot), (issued / NB - 1) & 1);
+      bulk_load(buf + slot * SLICE, w + (size_t)k * SLICE, SLICE, bars() + 8 * slot);
+    }
+    if (++k == n) k = 0;
+    ++issued;
+  }
+  __device__ uint32_t next() {
+    issue();
+    const int slot = used % NB;
+    mbar_wait(bars() + 8 * slot, (used / NB) & 1);
+    return buf + slot * SLICE;
+  }
+  __device__ void release() {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(bars() + 8 * (NB + used % NB));
+    ++used;
+  }
+  __device__ void drain() {        // no copy may land after the block exits
+    for (int j = used; j < issued; ++j) mbar_wait(bars() + 8 * (j % NB), (j / NB) & 1);
+  }
+  __device__ uint32_t bars() const { return buf + NB * SLICE; }
+};
+
+// acc[mi] = this warp's m-tiles (source pixels px[mi], this lane's
+// ldmatrix row) x its 32 channels (cb..cb+31) of the next taps * slabs
+// slices of the stream.  Slab s of the source plane is at shared address
+// src + s * slab_bytes; tap t adds off(t) pixels.  The barrier first: the
+// pass may read a plane the previous epilogue wrote, and its epilogue may
+// overwrite what the previous one's stores still read.
+template <int TAPS, typename Off>
+__device__ __forceinline__ void mma_pass(Ring& ring, const unsigned char* src_ptr, int slab_bytes,
+                                         int slabs, const int px[2], bool one, bool two, int cb,
+                                         int acc[2][4][4], Off off, int lane) {
+  __syncthreads();
+  const uint32_t src = smem_u32(src_ptr);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+  const int a_chunk = lane >> 4;
+  const int b_row = cb + (lane & 7) + 8 * (lane >> 4);
+  const int b_sw = (b_row >> 1) & 3, b_chunk = (lane >> 3) & 1;
+#pragma unroll 1
+  for (int t = 0; t < TAPS; ++t) {
+    const int o = off(t);
+#pragma unroll 1
+    for (int s = 0; s < slabs; ++s) {
+      const uint32_t wt = ring.next() + b_row * 64;
+      if (!one) {
+        ring.release();
+        continue;
+      }
+      const uint32_t a_src = src + s * slab_bytes;
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh) {
+        uint32_t a[2][4];
+        ldsm_x4(a[0], a_src + swz(px[0] + o, 2 * kh + a_chunk));
+        if (two) ldsm_x4(a[1], a_src + swz(px[1] + o, 2 * kh + a_chunk));
+        const int b_off = ((2 * kh + b_chunk) ^ b_sw) << 4;
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4(b, wt + np * 16 * 64 + b_off);
+          mma_s8(acc[0][2 * np], a[0], b[0], b[1]);
+          mma_s8(acc[0][2 * np + 1], a[0], b[2], b[3]);
+          if (two) {
+            mma_s8(acc[1][2 * np], a[1], b[0], b[1]);
+            mma_s8(acc[1][2 * np + 1], a[1], b[2], b[3]);
+          }
+        }
+      }
+      ring.release();
+    }
+  }
+}
+
+template <int FORM, bool PROJ, bool LAST>
+__global__ void __launch_bounds__(THREADS, 1)
+block_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ wst,
+             const float* __restrict__ tab, float sx, void* __restrict__ out, int H, int R,
+             int cin, int cmid, int cout, int tiles_y, int tiles_x, int total, int nslices,
+             int nchw_c) {
+  using G = Geo<FORM>;
+  constexpr bool BOT = FORM == BOT1 || FORM == BOT2;
+  constexpr int OUT = G::TH * G::TW;
+  constexpr int XSLAB = G::XPIX * 64;
+  constexpr int T1SLAB = G::C1ROWS * 64;
+  constexpr int T2SLAB = OUT * 64;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Lay L = layout<FORM>(cin, cmid, cout, PROJ, LAST);
+  unsigned char* X = smem;
+  unsigned char* T1 = smem + L.t1;
+  unsigned char* T2 = smem + L.t2;
+  unsigned char* RES = smem + L.res;
+  unsigned char* STG = smem + L.stage;
+  const uint32_t bars = smem_u32(smem + L.bar);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  // warp (wr, wc): m-tiles wr and wr + 8 of a pass, channels cb..cb+31
+  const int wr = warp & 7, cb = 32 * (warp >> 3);
+  const int lrow = (lane & 7) + 8 * ((lane >> 3) & 1);
+  const int cs = cin / 64, ms = cmid / 64, os = cout / 64;
+  // tables: (f, b) per conv in chain order, the projection last (offsets
+  // from the kernel's parameters, so no register holds them)
+#define W1 (BOT ? cmid : cout)
+#define F3 (BOT ? 4 * cmid : 2 * cout)
+
+  if (tid == 0) {
+    for (int i = 0; i < NB; ++i) {
+      mbar_init(bars + 8 * i, 1);                  // the issuing thread's arrive
+      mbar_init(bars + 8 * (NB + i), THREADS / 32);  // one arrive per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  Ring ring{smem_u32(smem + L.ring), wst, nslices, 0, 0, 0};
+  for (int i = 0; i < NB - 1; ++i) ring.issue();
+
+  // the input region of tile tl, zero outside the image (the convs' zero
+  // padding).  In a stage's first block, from the stage's int8 NCHW codes
+  // (nchw_c channels, the rest zero): a byte per thread, neighbouring
+  // threads on neighbouring pixels of one channel plane, 8 loads in flight
+  // per thread before their stores.
+  auto load_nchw = [&](int tl) {
+    const int img = tl / (tiles_y * tiles_x), t = tl % (tiles_y * tiles_x);
+    const int y0 = (t / tiles_x) * G::TH, x0 = (t % tiles_x) * G::TW;
+    const int8_t* xn = x + img * nchw_c * H * H;
+    const int end = cs * 64 * G::XPIX;
+#pragma unroll 1
+    for (int i0 = tid; i0 < end; i0 += 8 * THREADS) {
+      int8_t v[8];
+      int dst[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = i0 + u * THREADS;
+        const int c = i / G::XPIX, p = i % G::XPIX;
+        int gy, gx;
+        const bool ok = i < end && x_pixel<FORM>(p, y0, x0, gy, gx) && c < nchw_c && gy >= 0 &&
+                        gy < H && gx >= 0 && gx < H;
+        dst[u] = i < end ? (c >> 6) * XSLAB + swz(p, (c >> 4) & 3) + (c & 15) : -1;
+        v[u] = ok ? __ldg(xn + (c * H + gy) * H + gx) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (dst[u] >= 0) X[dst[u]] = (unsigned char)v[u];
+    }
+  };
+  // slabs s0..s1-1 from an NHWC plane, as one cp.async group
+  auto load_nhwc = [&](int tl, int s0, int s1) {
+    const int img = tl / (tiles_y * tiles_x), t = tl % (tiles_y * tiles_x);
+    const int y0 = (t / tiles_x) * G::TH, x0 = (t % tiles_x) * G::TW;
+    const int8_t* xn = x + img * H * H * cin;
+#pragma unroll 1
+    for (int i = s0 * G::XPIX * 4 + tid; i < s1 * G::XPIX * 4; i += THREADS) {
+      const int s = i / (G::XPIX * 4), p = (i >> 2) % G::XPIX, q = i & 3;
+      int gy, gx;
+      const bool ok = x_pixel<FORM>(p, y0, x0, gy, gx) && gy >= 0 && gy < H && gx >= 0 && gx < H;
+      cp_async16(X + s * XSLAB + swz(p, q), ok ? xn + (gy * H + gx) * cin + s * 64 + q * 16 : x,
+                 ok);
+    }
+    cp_async_commit();
+  };
+
+  for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+    const int img = tile / (tiles_y * tiles_x);
+    const int t = tile % (tiles_y * tiles_x);
+    const int y0 = (t / tiles_x) * G::TH, x0 = (t % tiles_x) * G::TW;
+    const bool has_next = tile + gridDim.x < total;
+
+    __syncthreads();          // the previous tile is done with X and the staging area
+    // an identity block reading NHWC had its previous tile prefetch this
+    // one's input region
+    if (nchw_c)
+      load_nchw(tile);
+    else if (PROJ || tile == (int)blockIdx.x)
+      load_nhwc(tile, 0, cs);
+    cp_async_wait_all();
+    __syncthreads();
+
+    int acc[2][4][4];
+    int px[2];
+
+    // int8 plane epilogue (t1, t2, mid): pass rows g0.. -> pixel row of
+    // slab n of dst; zero where the pixel is outside the image (zero_out)
+    auto epi_plane = [&](unsigned char* dst, int slab_bytes, int n, int g0, int rows,
+                         const float* f, const float* b, bool zero_out) {
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int o = cb + 8 * ni + 2 * t4, co = 64 * n + o;
+        const float fa = __ldg(f + co), fb = __ldg(f + co + 1);
+        const float ba = __ldg(b + co), bb = __ldg(b + co + 1);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = g0 + (wr + 8 * mi) * 16 + g + 8 * h;
+            if (r >= rows) continue;
+            uint32_t pair = 0;
+            if (!zero_out || t1_inside<FORM>(r, y0, x0, H, R))
+              pair = (uint32_t)trunc_code(affine(acc[mi][ni][2 * h], fa, ba)) |
+                     (uint32_t)trunc_code(affine(acc[mi][ni][2 * h + 1], fb, bb)) << 8;
+            *reinterpret_cast<uint16_t*>(dst + n * slab_bytes + swz(r, o >> 4) + (o & 15)) =
+                (uint16_t)pair;
+          }
+        }
+        asm volatile("" ::: "memory");   // one channel group's loads at a time
+      }
+    };
+    // the block's sum for output channels 64n..64n+63, staged, then stored
+    auto epi_final = [&](int n) {
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int o = cb + 8 * ni + 2 * t4, co = 64 * n + o;
+        const float fa = __ldg(tab + F3 + co), fb = __ldg(tab + F3 + co + 1);
+        const float ba = __ldg(tab + F3 + cout + co), bb = __ldg(tab + F3 + cout + co + 1);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = (wr + 8 * mi) * 16 + g + 8 * h;
+            if (m >= OUT) continue;
+            const uint32_t res =
+                PROJ ? *reinterpret_cast<const uint16_t*>(RES + swz(m, o >> 4) + (o & 15))
+                     : *reinterpret_cast<const uint16_t*>(X + n * XSLAB +
+                                                          swz(res_px<FORM>(m), o >> 4) + (o & 15));
+            float y[2];
+            y[0] = __fadd_rn(affine(acc[mi][ni][2 * h], fa, ba),
+                             __fmul_rn(__int2float_rn((int)(int8_t)(res & 0xff)), sx));
+            y[1] = __fadd_rn(affine(acc[mi][ni][2 * h + 1], fb, bb),
+                             __fmul_rn(__int2float_rn((int)(int8_t)(res >> 8)), sx));
+            if (LAST) {
+              uint16_t* s16 = reinterpret_cast<uint16_t*>(STG);
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+                s16[(o + e) * SP + m] = __bfloat16_as_ushort(__float2bfloat16_rn(fmaxf(y[e], 0.f)));
+            } else {
+              *reinterpret_cast<uint16_t*>(STG + swz(m, o >> 4) + (o & 15)) =
+                  (uint16_t)((uint32_t)trunc_code(y[0]) | (uint32_t)trunc_code(y[1]) << 8);
+            }
+          }
+        }
+        asm volatile("" ::: "memory");
+      }
+      __syncthreads();
+      // an identity block is done with slab n of X: the next tile's streams in
+      if (!PROJ && !nchw_c && has_next) load_nhwc(tile + gridDim.x, n, n + 1);
+      if (LAST) {
+        // NCHW rows: pixel pairs (TW, R and x0 even: a pair stays in its row)
+        __nv_bfloat16* o16 = reinterpret_cast<__nv_bfloat16*>(out);
+#pragma unroll 1
+        for (int i = tid; i < 64 * (OUT / 2); i += THREADS) {
+          const int c = i / (OUT / 2), m = 2 * (i % (OUT / 2));
+          const int oy = y0 + m / G::TW, ox = x0 + m % G::TW;
+          if (oy >= R || ox >= R) continue;
+          *reinterpret_cast<uint32_t*>(o16 + ((img * cout + 64 * n + c) * R + oy) * R + ox) =
+              *reinterpret_cast<const uint32_t*>(reinterpret_cast<const uint16_t*>(STG) + c * SP + m);
+        }
+      } else {
+        int8_t* o8 = reinterpret_cast<int8_t*>(out);
+#pragma unroll 1
+        for (int i = tid; i < OUT * 4; i += THREADS) {
+          const int m = i >> 2, q = i & 3;
+          const int oy = y0 + m / G::TW, ox = x0 + m % G::TW;
+          if (oy >= R || ox >= R) continue;
+          *reinterpret_cast<uint4*>(o8 + ((img * R + oy) * R + ox) * cout + 64 * n + 16 * q) =
+              *reinterpret_cast<const uint4*>(STG + swz(m, q));
+        }
+      }
+    };
+    // the projection of output channels 64n..64n+63 into RES
+    auto projection = [&](int n) {
+      const int mt = (OUT + 15) / 16;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        px[mi] = res_px<FORM>(min((wr + 8 * mi) * 16 + lrow, OUT - 1));
+      mma_pass<1>(ring, X, XSLAB, cs, px, wr < mt, wr + 8 < mt, cb, acc, [](int) { return 0; },
+                  lane);
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int o = cb + 8 * ni + 2 * t4, co = 64 * n + o;
+        const float fa = __ldg(tab + F3 + 2 * cout + co), fb = __ldg(tab + F3 + 2 * cout + co + 1);
+        const float ba = __ldg(tab + F3 + 3 * cout + co), bb = __ldg(tab + F3 + 3 * cout + co + 1);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = (wr + 8 * mi) * 16 + g + 8 * h;
+            if (m >= OUT) continue;
+            const int va = (int)fminf(fmaxf(floorf(affine(acc[mi][ni][2 * h], fa, ba)), -127.f), 127.f);
+            const int vb = (int)fminf(fmaxf(floorf(affine(acc[mi][ni][2 * h + 1], fb, bb)), -127.f), 127.f);
+            *reinterpret_cast<uint16_t*>(RES + swz(m, o >> 4) + (o & 15)) =
+                (uint16_t)(((uint32_t)va & 0xff) | ((uint32_t)vb & 0xff) << 8);
+          }
+        }
+        asm volatile("" ::: "memory");
+      }
+    };
+
+    const int mt_out = (OUT + 15) / 16;
+    if constexpr (BOT) {
+      // conv1 (1x1) over every t1 pixel, in groups of 16 m-tiles
+      for (int g0 = 0; g0 < G::C1ROWS; g0 += 256) {
+        const int mt = min(16, (G::C1ROWS - g0) / 16);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) px[mi] = g0 + (wr + 8 * mi) * 16 + lrow;
+        for (int n = 0; n < ms; ++n) {
+          mma_pass<1>(ring, X, XSLAB, cs, px, wr < mt, wr + 8 < mt, cb, acc,
+                      [](int) { return 0; }, lane);
+          epi_plane(T1, T1SLAB, n, g0, G::C1ROWS, tab, tab + W1, true);
+        }
+      }
+      // conv2 (3x3, stride 1 or 2 by the phase layout) over the output tile
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) px[mi] = c2_px<FORM>(min((wr + 8 * mi) * 16 + lrow, OUT - 1));
+      for (int n = 0; n < ms; ++n) {
+        mma_pass<9>(ring, T1, T1SLAB, ms, px, wr < mt_out, wr + 8 < mt_out, cb, acc,
+                    [](int t) { return c2_off<FORM>(t); }, lane);
+        epi_plane(T2, T2SLAB, n, 0, OUT, tab + 2 * W1, tab + 3 * W1, false);
+      }
+      // conv3 (1x1) in passes of 64 output channels, each after its projection
+      for (int n = 0; n < os; ++n) {
+        if (PROJ) projection(n);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) px[mi] = min((wr + 8 * mi) * 16 + lrow, OUT - 1);
+        mma_pass<1>(ring, T2, T2SLAB, ms, px, wr < mt_out, wr + 8 < mt_out, cb, acc,
+                    [](int) { return 0; }, lane);
+        epi_final(n);
+      }
+    } else {
+      // conv1 (3x3, stride 1 or 2 by the phase layout) over the 16 x 16 mid halo
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) px[mi] = c1_px<FORM>((wr + 8 * mi) * 16 + lrow);
+      for (int n = 0; n < os; ++n) {
+        mma_pass<9>(ring, X, XSLAB, cs, px, true, true, cb, acc,
+                    [](int t) { return c1_off<FORM>(t); }, lane);
+        epi_plane(T1, T1SLAB, n, 0, G::C1ROWS, tab, tab + W1, true);
+      }
+      // conv2 (3x3) over the output tile, each pass after its projection
+      for (int n = 0; n < os; ++n) {
+        if (PROJ) projection(n);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) px[mi] = c2_px<FORM>(min((wr + 8 * mi) * 16 + lrow, OUT - 1));
+        mma_pass<9>(ring, T1, T1SLAB, os, px, wr < mt_out, wr + 8 < mt_out, cb, acc,
+                    [](int t) { return c2_off<FORM>(t); }, lane);
+        epi_final(n);
+      }
+    }
+  }
+  cp_async_wait_all();
+  ring.drain();
+#undef W1
+#undef F3
+}
+
+// ------------------------------------------------------------------ host
+template <int FORM, bool PROJ, bool LAST>
+int launch(const int8_t* x, const int8_t* w, const float* tab, float sx, void* out, int n, int h,
+           int cin, int cmid, int cout, int nslices, int nchw_c, cudaStream_t s) {
+  using G = Geo<FORM>;
+  const Lay L = layout<FORM>(cin, cmid, cout, PROJ, LAST);
+  if (L.bytes > SMEM_MAX || nslices != stream_slices<FORM>(cin, cmid, cout, PROJ))
+    return (int)cudaErrorInvalidValue;
+  const int r = (FORM == BAS2 || FORM == BOT2) ? h / 2 : h;
+  const int ty = (r + G::TH - 1) / G::TH, tx = (r + G::TW - 1) / G::TW;
+  const long long total = (long long)n * ty * tx;
+  if (total > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = block_kernel<FORM, PROJ, LAST>;
+  static bool sized = false;   // the shared-memory opt-in, once per instantiation
+  cudaError_t e;
+  if (!sized) {
+    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX)) !=
+        cudaSuccess)
+      return (int)e;
+    sized = true;
+  }
+  // one block per SM: 512 threads at up to 128 registers fill its register file
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)e;
+  }
+  const int grid = total < sms ? (int)total : sms;
+  kernel<<<grid, THREADS, L.bytes, s>>>(x, w, tab, sx, out, h, r, cin, cmid, cout, ty, tx,
+                                        (int)total, nslices, nchw_c);
+  return (int)cudaGetLastError();
+}
+
+template <int FORM, bool PROJ>
+int launch_last(int last, const int8_t* x, const int8_t* w, const float* tab, float sx, void* out,
+                int n, int h, int cin, int cmid, int cout, int nslices, int nchw_c,
+                cudaStream_t s) {
+  return last ? launch<FORM, PROJ, true>(x, w, tab, sx, out, n, h, cin, cmid, cout, nslices, nchw_c, s)
+              : launch<FORM, PROJ, false>(x, w, tab, sx, out, n, h, cin, cmid, cout, nslices, nchw_c, s);
+}
+
+// ------------------------------------------------- per-conv kernel (wide blocks)
+// One conv of a block: M = output pixels, N = output channels, K = taps x
+// input channels.  128 threads, 4 warps of 32 pixels x 64 channels, a
+// 3-stage cp.async ring of 128 x 64 A and 64 x 64 B bytes in 80-byte rows
+// (conflict-free 32-bit fragment loads).  EPI: 0 trunc-fold plane (t1, t2,
+// mid), 1 projection residual, 2 block sum to int8 NHWC, 3 block sum ReLU'd
+// to bf16 NCHW (the stage's last block).
+constexpr int BM = 128, BN = 64, BK = 64;
+constexpr int CONV_THREADS = 128;
+constexpr int LDS = BK + 16;
+constexpr int A_BYTES = BM * LDS, B_BYTES = BN * LDS;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int NSTAGE = 3;
+static_assert(NSTAGE * STAGE_BYTES <= 48 * 1024, "static shared memory");
 
 template <int KS, int STRIDE, int EPI>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(CONV_THREADS)
 conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
             const float* __restrict__ fs, const float* __restrict__ bs,
             const int8_t* __restrict__ res, float sx, void* __restrict__ out,
             int n, int H, int Cin, int Ho, int Cout) {
-  __shared__ __align__(16) int8_t smem[NSTAGE * STAGE_BYTES];
+  __shared__ __align__(16) unsigned char smem[NSTAGE * STAGE_BYTES];
   constexpr int PAD = KS / 2;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
@@ -111,8 +762,8 @@ conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 
   auto load = [&](int s, int slot) {
-    int8_t* As = smem + slot * STAGE_BYTES;
-    int8_t* Bs = As + A_BYTES;
+    unsigned char* As = smem + slot * STAGE_BYTES;
+    unsigned char* Bs = As + A_BYTES;
     const int tap = s / cchunks, cc = s % cchunks;
     const int dy = tap / KS, dx = tap % KS;
 #pragma unroll
@@ -148,14 +799,14 @@ conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     const int nxt = s + NSTAGE - 1;
     if (nxt < ksteps) load(nxt, nxt % NSTAGE);
     cp_async_commit();
-    const int8_t* As = smem + (s % NSTAGE) * STAGE_BYTES;
-    const int8_t* Bs = As + A_BYTES;
+    const unsigned char* As = smem + (s % NSTAGE) * STAGE_BYTES;
+    const unsigned char* Bs = As + A_BYTES;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 32) {
       uint32_t af[2][4], bf[8][2];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
-        const int8_t* p = As + (warp * 32 + mi * 16 + g) * LDS + kk + t4 * 4;
+        const unsigned char* p = As + (warp * 32 + mi * 16 + g) * LDS + kk + t4 * 4;
         af[mi][0] = *reinterpret_cast<const uint32_t*>(p);
         af[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
         af[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
@@ -163,14 +814,14 @@ conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       }
 #pragma unroll
       for (int ni = 0; ni < 8; ++ni) {
-        const int8_t* p = Bs + (ni * 8 + g) * LDS + kk + t4 * 4;
+        const unsigned char* p = Bs + (ni * 8 + g) * LDS + kk + t4 * 4;
         bf[ni][0] = *reinterpret_cast<const uint32_t*>(p);
         bf[ni][1] = *reinterpret_cast<const uint32_t*>(p + 16);
       }
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 8; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni]);
+        for (int ni = 0; ni < 8; ++ni) mma_s8(acc[mi][ni], af[mi], bf[ni][0], bf[ni][1]);
     }
   }
   cp_async_wait<0>();
@@ -188,24 +839,22 @@ conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         const int o = n0 + ni * 8 + 2 * t4;
         float v[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          v[e] = __fadd_rn(__fmul_rn(__int2float_rn(acc[mi][ni][2 * h + e]), fs[o + e]), bs[o + e]);
+        for (int e = 0; e < 2; ++e) v[e] = affine(acc[mi][ni][2 * h + e], fs[o + e], bs[o + e]);
         if (EPI == 0 || EPI == 1 || EPI == 2) {
-          int8_t r8[2];
+          uint32_t r8[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             if (EPI == 0) {
-              r8[e] = trunc_i8(v[e]);
+              r8[e] = (uint32_t)trunc_code(v[e]);
             } else if (EPI == 1) {
-              r8[e] = static_cast<int8_t>(static_cast<int>(fminf(fmaxf(floorf(v[e]), -127.f), 127.f)));
+              r8[e] = (uint32_t)(int)fminf(fmaxf(floorf(v[e]), -127.f), 127.f) & 0xff;
             } else {
               const float r = __int2float_rn(res[(size_t)m * Cout + o + e]);
-              r8[e] = trunc_i8(__fadd_rn(v[e], __fmul_rn(r, sx)));
+              r8[e] = (uint32_t)trunc_code(__fadd_rn(v[e], __fmul_rn(r, sx)));
             }
           }
-          const uint16_t pair = static_cast<uint16_t>(static_cast<uint8_t>(r8[0])) |
-                                static_cast<uint16_t>(static_cast<uint8_t>(r8[1])) << 8;
-          *reinterpret_cast<uint16_t*>(reinterpret_cast<int8_t*>(out) + (size_t)m * Cout + o) = pair;
+          *reinterpret_cast<uint16_t*>(reinterpret_cast<int8_t*>(out) + (size_t)m * Cout + o) =
+              (uint16_t)(r8[0] | r8[1] << 8);
         } else {
           const int img = m / P, p = m % P;
           __nv_bfloat16* o16 = reinterpret_cast<__nv_bfloat16*>(out);
@@ -222,14 +871,14 @@ conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 template <int KS, int STRIDE>
-int launch_epi(int epi, dim3 grid, cudaStream_t s, const int8_t* x, const int8_t* w,
-               const float* f, const float* b, const int8_t* res, float sx, void* out,
-               int n, int h, int cin, int ho, int cout) {
+int launch_conv(int epi, dim3 grid, cudaStream_t s, const int8_t* x, const int8_t* w,
+                const float* f, const float* b, const int8_t* res, float sx, void* out, int n,
+                int h, int cin, int ho, int cout) {
   switch (epi) {
-    case 0: conv_kernel<KS, STRIDE, 0><<<grid, THREADS, 0, s>>>(x, w, f, b, res, sx, out, n, h, cin, ho, cout); break;
-    case 1: conv_kernel<KS, STRIDE, 1><<<grid, THREADS, 0, s>>>(x, w, f, b, res, sx, out, n, h, cin, ho, cout); break;
-    case 2: conv_kernel<KS, STRIDE, 2><<<grid, THREADS, 0, s>>>(x, w, f, b, res, sx, out, n, h, cin, ho, cout); break;
-    case 3: conv_kernel<KS, STRIDE, 3><<<grid, THREADS, 0, s>>>(x, w, f, b, res, sx, out, n, h, cin, ho, cout); break;
+    case 0: conv_kernel<KS, STRIDE, 0><<<grid, CONV_THREADS, 0, s>>>(x, w, f, b, res, sx, out, n, h, cin, ho, cout); break;
+    case 1: conv_kernel<KS, STRIDE, 1><<<grid, CONV_THREADS, 0, s>>>(x, w, f, b, res, sx, out, n, h, cin, ho, cout); break;
+    case 2: conv_kernel<KS, STRIDE, 2><<<grid, CONV_THREADS, 0, s>>>(x, w, f, b, res, sx, out, n, h, cin, ho, cout); break;
+    case 3: conv_kernel<KS, STRIDE, 3><<<grid, CONV_THREADS, 0, s>>>(x, w, f, b, res, sx, out, n, h, cin, ho, cout); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -237,16 +886,74 @@ int launch_epi(int epi, dim3 grid, cudaStream_t s, const int8_t* x, const int8_t
 
 }  // namespace
 
-// One conv of a stage: x (n, h, h, cin) int8 NHWC -> (n, ho, ho, cout) int8
-// NHWC (epi 0-2) or (n, cout, ho, ho) bf16 NCHW (epi 3).  cin and cout are
-// multiples of 64; ks is 1 or 3 (pad ks/2), stride 1 or 2.
+// One residual block: x (n, h, h, cin) int8 NHWC, or, when nchw_c > 0, the
+// stage's int8 codes (n, nchw_c, h, h) NCHW with nchw_c <= cin -> (n, r, r,
+// cout) int8 NHWC, or (n, cout, r, r) bf16 NCHW when `last`.  form: 0
+// bottleneck stride 1, 1 basic stride 1, 2 basic stride 2, 3 bottleneck
+// stride 2 (r = h / 2; both stride-2 forms have a projection); cmid = cout
+// for a basic block; w the block's packed weight stream of `nslices` 4 KB
+// slices; tab the folded (f, b) rows.  Widths are multiples of 64, r is
+// even, and every plane's element count fits in an int.
+extern "C" int stagen_block(const void* x, const void* w, const void* tab, float sx, void* out,
+                            int n, int h, int cin, int cmid, int cout, int form, int proj,
+                            int last, int nslices, int nchw_c, void* stream) {
+  if (n <= 0 || h <= 0 || cin <= 0 || cmid <= 0 || cout <= 0 || cin % 64 || cmid % 64 ||
+      cout % 64 || nchw_c < 0 || nchw_c > cin)
+    return (int)cudaErrorInvalidValue;
+  const bool s2 = form == BAS2 || form == BOT2;
+  if ((s2 && (h % 4 || !proj)) || (!s2 && h % 2) || (!proj && cin != cout))
+    return (int)cudaErrorInvalidValue;
+  const long long side = h, big = cin > cout ? cin : cout;
+  if ((long long)n * side * side * big > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) & 15) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int8_t* xi = reinterpret_cast<const int8_t*>(x);
+  const int8_t* wi = reinterpret_cast<const int8_t*>(w);
+  const float* ti = reinterpret_cast<const float*>(tab);
+  const int ns = nslices, nc = nchw_c;
+  switch (form) {
+    case BOT1:
+      return proj ? launch_last<BOT1, true>(last, xi, wi, ti, sx, out, n, h, cin, cmid, cout, ns, nc, s)
+                  : launch_last<BOT1, false>(last, xi, wi, ti, sx, out, n, h, cin, cmid, cout, ns, nc, s);
+    case BAS1:
+      return proj ? launch_last<BAS1, true>(last, xi, wi, ti, sx, out, n, h, cin, cmid, cout, ns, nc, s)
+                  : launch_last<BAS1, false>(last, xi, wi, ti, sx, out, n, h, cin, cmid, cout, ns, nc, s);
+    case BAS2:
+      return launch_last<BAS2, true>(last, xi, wi, ti, sx, out, n, h, cin, cmid, cout, ns, nc, s);
+    case BOT2:
+      return launch_last<BOT2, true>(last, xi, wi, ti, sx, out, n, h, cin, cmid, cout, ns, nc, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory in bytes that stagen_block needs for a block of this
+// form and these (64-padded) widths, or -1 for an unknown form; a block
+// runs fused where it is at most 232448 (227 KB), else conv by conv.
+extern "C" int stagen_block_smem(int form, int cin, int cmid, int cout, int proj, int last) {
+  switch (form) {
+    case BOT1: return layout<BOT1>(cin, cmid, cout, proj, last).bytes;
+    case BAS1: return layout<BAS1>(cin, cmid, cout, proj, last).bytes;
+    case BAS2: return layout<BAS2>(cin, cmid, cout, proj, last).bytes;
+    case BOT2: return layout<BOT2>(cin, cmid, cout, proj, last).bytes;
+    default: return -1;
+  }
+}
+
+// One conv of a wide block: x (n, h, h, cin) int8 NHWC -> (n, ho, ho, cout)
+// int8 NHWC (epi 0-2) or (n, cout, ho, ho) bf16 NCHW (epi 3); w int8
+// [cout][tap][cin]; f, b float32 [cout]; res int8 NHWC at the output's shape
+// (epi 2-3).  cin and cout are multiples of 64; ks is 1 or 3 (pad ks/2),
+// stride 1 or 2.
 extern "C" int stagen_conv(const void* x, const void* w, const void* f, const void* b,
                            const void* res, float sx, void* out, int n, int h, int cin,
                            int cout, int ks, int stride, int epi, void* stream) {
-  if (cin % BK || cout % BN || n <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
+  if (cin <= 0 || cout <= 0 || cin % BK || cout % BN || n <= 0 || h <= 0)
+    return (int)cudaErrorInvalidValue;
   if ((epi == 2 || epi == 3) && res == nullptr) return (int)cudaErrorInvalidValue;
   const int ho = (h + 2 * (ks / 2) - ks) / stride + 1;
   const long long m = (long long)n * ho * ho;
+  if (m > 0x7fffffffLL - BM) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)((m + BM - 1) / BM), (unsigned)(cout / BN));
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int8_t* xi = reinterpret_cast<const int8_t*>(x);
@@ -254,9 +961,9 @@ extern "C" int stagen_conv(const void* x, const void* w, const void* f, const vo
   const float* fi = reinterpret_cast<const float*>(f);
   const float* bi = reinterpret_cast<const float*>(b);
   const int8_t* ri = reinterpret_cast<const int8_t*>(res);
-  if (ks == 1 && stride == 1) return launch_epi<1, 1>(epi, grid, s, xi, wi, fi, bi, ri, sx, out, n, h, cin, ho, cout);
-  if (ks == 1 && stride == 2) return launch_epi<1, 2>(epi, grid, s, xi, wi, fi, bi, ri, sx, out, n, h, cin, ho, cout);
-  if (ks == 3 && stride == 1) return launch_epi<3, 1>(epi, grid, s, xi, wi, fi, bi, ri, sx, out, n, h, cin, ho, cout);
-  if (ks == 3 && stride == 2) return launch_epi<3, 2>(epi, grid, s, xi, wi, fi, bi, ri, sx, out, n, h, cin, ho, cout);
+  if (ks == 1 && stride == 1) return launch_conv<1, 1>(epi, grid, s, xi, wi, fi, bi, ri, sx, out, n, h, cin, ho, cout);
+  if (ks == 1 && stride == 2) return launch_conv<1, 2>(epi, grid, s, xi, wi, fi, bi, ri, sx, out, n, h, cin, ho, cout);
+  if (ks == 3 && stride == 1) return launch_conv<3, 1>(epi, grid, s, xi, wi, fi, bi, ri, sx, out, n, h, cin, ho, cout);
+  if (ks == 3 && stride == 2) return launch_conv<3, 2>(epi, grid, s, xi, wi, fi, bi, ri, sx, out, n, h, cin, ho, cout);
   return (int)cudaErrorInvalidValue;
 }

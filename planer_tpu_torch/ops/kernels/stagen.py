@@ -6,8 +6,16 @@ block followed by identity blocks at the same width.  The TPU runs the whole
 stage in one Pallas kernel (``_stagen_kernel``) with every activation plane
 in VMEM.  A stage does not fit in one SM's shared memory (ResNet-50 layer1
 holds 256 x 56 x 56 int8 = 800 KB per image), so on Hopper the wrapper
-launches a fused conv-epilogue kernel (``csrc/stagen.cu``) once per conv of
-the stage, on int8 NHWC planes it allocates itself.
+launches the block kernel (``csrc/stagen.cu``) once per residual block, on
+int8 NHWC planes it allocates itself: a block's intermediate planes (t1, t2,
+mid, the projection residual) stay in shared memory, per output tile.  The
+kernel's operands are packed once on the host (``_pack_stream``): every
+weight slice of a block, pre-swizzled, in the order the kernel reads them.
+A block whose planes do not fit in shared memory at the kernel's tiles
+(``_block_smem``: the wide stages, ResNet-50 layers 3-4 and ResNet-18
+layer 3's entry and layer 4, where the input side makes them eligible) runs
+conv by conv through the same library's per-conv kernel, its planes in
+device memory.
 
 What is reproduced is the TPU kernel's arithmetic, not the float model's
 (the two are far apart on a calibrated model: ROADMAP "Faults found"):
@@ -48,8 +56,10 @@ __all__ = ["stagen", "decomposed", "parse_blocks", "FALLOFF", "LAUNCHES",
 
 # why the fused path was skipped, by reason (the reference's keys)
 FALLOFF = collections.Counter()
-# conv kernel launches, as "stagen_conv:<tag>" by the stage geometry (see
-# _Plan.tag) they ran for; runs of the plain version are not counted
+# kernel launches, as "stagen_block:<tag>" (one per fused block) and
+# "stagen_conv:<tag>" (one per conv of a block too wide to fuse) by the
+# stage geometry (see _Plan.tag) they ran for; runs of the plain version are
+# not counted
 LAUNCHES = collections.Counter()
 
 # the reference's lane-layout limits, which decide where it fuses
@@ -57,7 +67,19 @@ HALO = 128
 _S_MAX = 5760
 # the kernel's channel granule: planes and weights are zero-padded to it
 _CPAD = 64
-# conv epilogues (the kernel's EPI template argument)
+# the kernel's block forms (its FORM template argument) by (kind, stride)
+_FORMS = {("bottleneck", 1): 0, ("basic", 1): 1, ("basic", 2): 2,
+          ("bottleneck", 2): 3}
+# each form's (tile rows, tile cols, input-region pixels, first-conv rows:
+# one per pixel of its t1 / mid plane), csrc/stagen.cu Geo
+_GEO = ((14, 14, 256, 256), (14, 14, 324, 256), (14, 14, 4 * 289, 256),
+        (7, 14, 4 * 120, 480))
+# the block kernel's shared-memory budget (227 KB), weight ring depth and
+# bf16 staging pitch (csrc/stagen.cu SMEM_MAX, NB, SP)
+_SMEM_MAX = 232448
+_NB = 6
+_SP = 200
+# the per-conv kernel's epilogues (its EPI template argument)
 EPI_RELU, EPI_RES, EPI_SUM, EPI_LAST = 0, 1, 2, 3
 
 
@@ -172,11 +194,11 @@ def decomposed(x, *w, blocks=None, on_conv=None):
 class _Conv:
     """One conv of the stage with its folded epilogue."""
     w: torch.Tensor          # (O, C, k, k) int8 codes
-    A: torch.Tensor          # (O, k*k*C) int8: A[o, t*C + c] = w[o, c, dy, dx]
     f: torch.Tensor          # (O,) float32 folded scale
     b: torch.Tensor          # (O,) float32 folded bias
     stride: int
-    padded: tuple | None = None   # (A, f, b) zero-padded for the kernel
+    # the per-conv kernel's (A, f, b), padded to the granule: _conv_operands
+    padded: tuple | None = None
 
     @property
     def k(self):
@@ -191,6 +213,17 @@ class _Block:
     proj: _Conv | None       # the 1x1 projection of an entry block
     sx_res: float            # the residual's scale into the final sum
     last: bool
+    form: int = 0            # the kernel's block form (_FORMS)
+    fused: bool = True       # one block kernel launch, else conv by conv
+    stream: torch.Tensor | None = None   # (S, 4096) int8: _pack_stream
+    tab: torch.Tensor | None = None      # float32 (f, b) rows: _pack_tab
+
+    def widths(self):
+        """(cin, cmid, cout) padded to the granule; cmid = cout for a basic
+        block."""
+        return (_cpad(self.convs[0].w.shape[1]),
+                _cpad(self.convs[0].w.shape[0]),
+                _cpad(self.convs[-1].w.shape[0]))
 
 
 @dataclasses.dataclass
@@ -238,10 +271,119 @@ def _res_scale(Wd, cur):
     return float(_np32(Wd.scale).max()) * cur
 
 
-def _pack(wq):
-    """(O, C, k, k) -> (O, k*k*C), tap-major: A[o, t*C + c]."""
-    o = wq.shape[0]
-    return wq.permute(0, 2, 3, 1).reshape(o, -1).contiguous()
+def _cpad(c):
+    return -(-c // _CPAD) * _CPAD
+
+
+def _swz(p, chunk):
+    """Byte offset of 16-byte chunk ``chunk`` of 64-byte row ``p`` in the
+    kernel's shared planes and weight slices (csrc/stagen.cu ``swz``)."""
+    return (p << 6) | ((chunk ^ ((p >> 1) & 3)) << 4)
+
+
+# byte of (output o, input channel c) in a 4 KB weight slice
+_SLICE_AT = _swz(np.arange(64)[:, None], np.arange(64)[None, :] >> 4) \
+    + (np.arange(64)[None, :] & 15)
+
+
+def _padded(c):
+    """(Op, Cp, k*k) int8: the conv's codes zero-padded to the granule."""
+    wq = c.w.detach().cpu().numpy()
+    o, ci, k, _ = wq.shape
+    out = np.zeros((_cpad(o), _cpad(ci), k * k), np.int8)
+    out[:o, :ci] = wq.reshape(o, ci, k * k)
+    return out
+
+
+def _slice(wp, n, t, s):
+    """Outputs 64n.., tap t, input channels 64s.. of padded weights as the
+    kernel's 4 KB slice: byte (o, c) at _swz(o, c >> 4) + (c & 15)."""
+    out = np.empty(64 * 64, np.int8)
+    out[_SLICE_AT] = wp[64 * n:64 * n + 64, 64 * s:64 * s + 64, t]
+    return out
+
+
+def _pack_stream(blk):
+    """The block's weight stream: every slice the kernel reads for one
+    output tile, in the order it reads them -> (S, 4096) int8.
+
+    bottleneck: conv1 (once per group of 256 t1 rows) by output chunk and
+    input slab; conv2 by output chunk, tap, slab; then per 64 outputs the
+    projection's slabs (entry blocks) and conv3's.  basic: conv1 by output
+    chunk, tap, slab; then per 64 outputs the projection's slabs and
+    conv2's taps and slabs."""
+    ws = [_padded(c) for c in blk.convs]
+    wd = _padded(blk.proj) if blk.proj is not None else None
+    cs = ws[0].shape[1] // 64
+    out = []
+
+    def conv(wp, n, taps, slabs):
+        out.extend(_slice(wp, n, t, s) for t in range(taps)
+                   for s in range(slabs))
+
+    if blk.kind == "bottleneck":
+        ms, os_ = ws[0].shape[0] // 64, ws[2].shape[0] // 64
+        for _ in range(-(-_GEO[blk.form][3] // 256)):
+            for n in range(ms):
+                conv(ws[0], n, 1, cs)
+        for n in range(ms):
+            conv(ws[1], n, 9, ms)
+        fin, fin_taps, fin_slabs = ws[2], 1, ms
+    else:
+        os_ = ws[0].shape[0] // 64
+        for n in range(os_):
+            conv(ws[0], n, 9, cs)
+        fin, fin_taps, fin_slabs = ws[1], 9, os_
+    for n in range(os_):
+        if wd is not None:
+            conv(wd, n, 1, cs)
+        conv(fin, n, fin_taps, fin_slabs)
+    return np.stack(out)
+
+
+def _block_smem(form, cin, cmid, cout, proj, last):
+    """Bytes of dynamic shared memory the block kernel lays out for a block
+    of this form and these padded widths (csrc/stagen.cu ``layout``; the
+    library's ``stagen_block_smem`` returns the same)."""
+    th, tw, xpix, c1rows = _GEO[form]
+    bot = form in (_FORMS["bottleneck", 1], _FORMS["bottleneck", 2])
+    out = th * tw
+    stage = 64 * _SP * 2 if last else out * 64
+    t1 = xpix * cin                      # the input region, resident
+    t1b = c1rows * (cmid if bot else cout)
+    if bot:                              # staging reuses t1 after conv2
+        t1b = max(t1b, stage)
+    end = t1 + t1b + (out * cmid if bot else 0) + (out * 64 if proj else 0)
+    if not bot:
+        end += stage
+    return end + _NB * 64 * 64 + 2 * _NB * 8
+
+
+def _fits(blk):
+    """Whether the block runs fused: its layout fits one SM's 227 KB."""
+    return _block_smem(blk.form, *blk.widths(), blk.proj is not None,
+                       blk.last) <= _SMEM_MAX
+
+
+def _conv_operands(c, device):
+    """The per-conv kernel's (A, f, b): A (Op, k*k*Cp) int8 with A[o, t*Cp +
+    c] = w[o, c, dy, dx] (tap t = dy*k + dx), f and b float32 (Op,), padded
+    outputs and inputs zero."""
+    wp = _padded(c)
+    A = np.ascontiguousarray(wp.transpose(0, 2, 1)).reshape(wp.shape[0], -1)
+    fb = [np.pad(_np32(v), (0, wp.shape[0] - v.shape[0])) for v in (c.f, c.b)]
+    return tuple(torch.as_tensor(v).to(device) for v in (A, *fb))
+
+
+def _pack_tab(blk):
+    """float32 (f, b) of each conv in chain order, the projection last,
+    each zero-padded to the granule."""
+    rows = []
+    for c in blk.convs + ([blk.proj] if blk.proj is not None else []):
+        o = c.f.shape[0]
+        for v in (c.f, c.b):
+            rows.append(np.pad(_np32(v), (0, _cpad(o) - o)))
+    return np.concatenate(rows)
 
 
 def _fold(w, blocks, device):
@@ -252,11 +394,9 @@ def _fold(w, blocks, device):
     parsed = parse_blocks(blocks, w)
     s_in = float(parsed[0]["convs"][0][0].act_scale)
 
-    def conv(W, f, b, stride=1):
-        return _Conv(W.q, _pack(W.q),
-                     torch.as_tensor(f, dtype=torch.float32, device=device),
-                     torch.as_tensor(b, dtype=torch.float32, device=device),
-                     stride)
+    def conv(W, f, b, stride=1):     # the tables move to device once packed
+        return _Conv(W.q, torch.as_tensor(f, dtype=torch.float32),
+                     torch.as_tensor(b, dtype=torch.float32), stride)
 
     cur = s_in
     out = []
@@ -298,7 +438,19 @@ def _fold(w, blocks, device):
             sx_res = s_res * nxt
         else:
             sx_res = cur * nxt
-        out.append(_Block(b["kind"], st, convs, proj, sx_res, last))
+        blk = _Block(b["kind"], st, convs, proj, sx_res, last,
+                     _FORMS[b["kind"], st])
+        blk.fused = _fits(blk)
+        every = convs + ([proj] if proj is not None else [])
+        if blk.fused:
+            blk.stream = torch.as_tensor(_pack_stream(blk)).to(device)
+            blk.tab = torch.as_tensor(_pack_tab(blk)).to(device)
+        else:
+            for c in every:
+                c.padded = _conv_operands(c, device)
+        for c in every:
+            c.f, c.b = c.f.to(device), c.b.to(device)
+        out.append(blk)
         cur = (1.0 if last
                else float(parsed[bi + 1]["convs"][0][0].act_scale))
     cin = parsed[0]["convs"][0][0].q.shape[1]
@@ -312,8 +464,10 @@ def _fold(w, blocks, device):
 def stagen_prologue(x, s_in):
     """Quantize the stage input to int8 codes: clamp(round(x / s_in), -127,
     127), with the division compiled as the reference's XLA prologue
-    compiles it (a multiply by the float32 reciprocal, torch_ops.quantize)."""
-    return quantize(x, s_in)
+    compiles it (a multiply by the float32 reciprocal, torch_ops.quantize).
+    The codes are contiguous NCHW whatever x's strides (a decomposed stem
+    can hand over a channels-last plane): the kernel reads them in place."""
+    return quantize(x, s_in).contiguous()
 
 
 def _affine(acc, c):
@@ -374,44 +528,54 @@ def _lib():
     from . import build
     lib = build.load("stagen")
     if not getattr(lib, "_planer_typed", False):
-        lib.stagen_conv.argtypes = [_VP, _VP, _VP, _VP, _VP, _F, _VP, _I, _I,
-                                    _I, _I, _I, _I, _I, _VP]
+        lib.stagen_block.argtypes = [_VP, _VP, _VP, _F, _VP] + [_I] * 10 + [_VP]
+        lib.stagen_block.restype = _I
+        lib.stagen_block_smem.argtypes = [_I] * 6
+        lib.stagen_block_smem.restype = _I
+        lib.stagen_conv.argtypes = [_VP] * 5 + [_F, _VP] + [_I] * 7 + [_VP]
         lib.stagen_conv.restype = _I
         lib._planer_typed = True
     return lib
 
 
-def _cpad(c):
-    return -(-c // _CPAD) * _CPAD
+def _launch_block(x, h, blk, tag, nchw=False):
+    """One block kernel launch on an (N, h, h, Cp) int8 NHWC plane, or
+    (``nchw``, a stage's first block) on the stage's (N, C, h, h) int8
+    codes.  Returns (N, r, r, Op) int8 NHWC, or (N, Op, r, r) bf16 NCHW for
+    the stage's last block, and r."""
+    n, cp = x.shape[0], x.shape[1 if nchw else 3]
+    cin, cmid, cout = blk.widths()
+    if _cpad(cp) != cin:
+        raise ValueError(f"stagen block: input has {cp} channels, weights "
+                         f"want {cin}")
+    r = h // blk.stride
+    if blk.last:
+        out = torch.empty((n, cout, r, r), dtype=torch.bfloat16,
+                          device=x.device)
+    else:
+        out = torch.empty((n, r, r, cout), dtype=torch.int8, device=x.device)
+    err = _lib().stagen_block(
+        x.data_ptr(), blk.stream.data_ptr(), blk.tab.data_ptr(),
+        float(blk.sx_res), out.data_ptr(), n, h, cin, cmid, cout, blk.form,
+        int(blk.proj is not None), int(blk.last), blk.stream.shape[0],
+        cp if nchw else 0, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"stagen_block launch failed: CUDA error {err}")
+    LAUNCHES[f"stagen_block:{tag}"] += 1
+    return out, r
 
 
-def _kernel_args(c):
-    """The conv's (A, f, b) zero-padded to the kernel's channel granule:
-    A as (Op, k*k*Cp), padded output channels with f = b = 0."""
-    if c.padded is None:
-        o, ci = c.w.shape[0], c.w.shape[1]
-        op, cp = _cpad(o), _cpad(ci)
-        A, f, b = c.A, c.f, c.b
-        if (op, cp) != (o, ci):
-            A = F.pad(A.reshape(o, c.k * c.k, ci),
-                      (0, cp - ci, 0, 0, 0, op - o)).reshape(op, -1)
-            f, b = F.pad(f, (0, op - o)), F.pad(b, (0, op - o))
-        c.padded = (A.contiguous(), f.contiguous(), b.contiguous())
-    return c.padded
-
-
-def _launch(x, h, c, epi, tag, res=None, sx=0.0):
-    """One conv-epilogue kernel launch on an (N, h, h, Cp) int8 NHWC plane.
+def _launch_conv(x, h, c, epi, tag, res=None, sx=0.0):
+    """One per-conv kernel launch on an (N, h, h, Cp) int8 NHWC plane.
     Returns (N, ho, ho, Op) int8 NHWC, or (N, Op, ho, ho) bf16 NCHW for
-    EPI_LAST."""
-    A, f, b = _kernel_args(c)
+    EPI_LAST, and ho."""
+    A, f, b = c.padded
     n, cp = x.shape[0], x.shape[3]
     op = A.shape[0]
     if A.shape[1] != c.k * c.k * cp:
         raise ValueError(f"stagen conv: input has {cp} channels, weights "
                          f"want {A.shape[1] // (c.k * c.k)}")
-    pad = c.k // 2
-    ho = (h + 2 * pad - c.k) // c.stride + 1
+    ho = (h + 2 * (c.k // 2) - c.k) // c.stride + 1
     if epi == EPI_LAST:
         out = torch.empty((n, op, ho, ho), dtype=torch.bfloat16,
                           device=x.device)
@@ -431,6 +595,20 @@ def _launch(x, h, c, epi, tag, res=None, sx=0.0):
     return out, ho
 
 
+def _run_convs(x, h, blk, tag):
+    """A block too wide to fuse, one per-conv launch per conv, on an (N, h,
+    h, Cp) int8 NHWC plane: what _launch_block returns."""
+    res = x
+    if blk.proj is not None:
+        res, _ = _launch_conv(x, h, blk.proj, EPI_RES, tag)
+    t, ho = x, h
+    for c in blk.convs[:-1]:
+        t, ho = _launch_conv(t, ho, c, EPI_RELU, tag)
+    return _launch_conv(t, ho, blk.convs[-1],
+                        EPI_LAST if blk.last else EPI_SUM, tag, res,
+                        blk.sx_res)
+
+
 def _check_plan(xq, plan):
     if not isinstance(xq, torch.Tensor) or xq.dtype != torch.int8:
         raise TypeError(f"stagen: input must be int8 codes, got "
@@ -446,41 +624,37 @@ def _check_plan(xq, plan):
     if not xq.is_contiguous():
         raise ValueError("stagen: input must be contiguous")
     for blk in plan.blocks:
+        ts = [blk.stream, blk.tab]
         for c in blk.convs + ([blk.proj] if blk.proj is not None else []):
-            for t in (c.w, c.A, c.f, c.b):
-                if t.device != xq.device:
-                    raise ValueError(f"stagen: weights on {t.device}, input "
-                                     f"on {xq.device}")
+            ts += [c.w, c.f, c.b, *(c.padded or ())]
+        for t in (t for t in ts if t is not None):
+            if t.device != xq.device:
+                raise ValueError(f"stagen: weights on {t.device}, input "
+                                 f"on {xq.device}")
 
 
 def stagen_stage(xq, plan):
     """Kernel wrapper for ``stagen_plain`` (same arguments and result).
-    CPU tensors run the plain version; CUDA tensors launch the conv kernel
-    once per conv of the stage, on int8 NHWC planes padded to 64 channels."""
+    CPU tensors run the plain version; CUDA tensors launch the block kernel
+    once per block of the stage (a block too wide for it, the per-conv
+    kernel once per conv): the first block reads the int8 NCHW codes, the
+    others int8 NHWC planes padded to 64 channels."""
     _check_plan(xq, plan)
     if xq.device.type == "cpu":
         return stagen_plain(xq, plan)
     if xq.device.type != "cuda":
         raise ValueError(f"stagen: no kernel for {xq.device}")
-    c = xq.shape[1]
-    cur = xq.permute(0, 2, 3, 1)
-    if _cpad(c) != c:
-        cur = F.pad(cur, (0, _cpad(c) - c))
-    cur, h = cur.contiguous(), xq.shape[2]
-    out, tag = None, plan.tag
-    for blk in plan.blocks:
-        res = cur
-        if blk.proj is not None:
-            res, _ = _launch(cur, h, blk.proj, EPI_RES, tag)
-        if blk.kind == "basic":
-            c1, fin = blk.convs
-            t, ho = _launch(cur, h, c1, EPI_RELU, tag)
+    # the first block reads the NCHW codes in place (the per-conv kernel an
+    # NHWC copy); the others the NHWC planes the block before wrote
+    cur, h, out, tag = xq, xq.shape[2], None, plan.tag
+    for i, blk in enumerate(plan.blocks):
+        if blk.fused:
+            out, h = _launch_block(cur, h, blk, tag, nchw=i == 0)
         else:
-            c1, c2, fin = blk.convs
-            t, _ = _launch(cur, h, c1, EPI_RELU, tag)
-            t, ho = _launch(t, h, c2, EPI_RELU, tag)
-        epi = EPI_LAST if blk.last else EPI_SUM
-        out, h = _launch(t, ho, fin, epi, tag, res, blk.sx_res)
+            if i == 0:
+                cur = F.pad(xq.permute(0, 2, 3, 1),
+                            (0, _cpad(plan.cin) - plan.cin)).contiguous()
+            out, h = _run_convs(cur, h, blk, tag)
         cur = out
     if out.shape[1] != plan.cout:
         out = out[:, :plan.cout].contiguous()

@@ -170,7 +170,9 @@ def test_folded_tables_equal_reference(case):
         convs = tb.convs + ([tb.proj] if tb.proj is not None else [])
         assert len(convs) == len(pb["A"])
         for k, c in enumerate(convs):
-            np.testing.assert_array_equal(c.A.numpy(),
+            # the reference's tap-major layout: A[o, t*C + c]
+            A = c.w.permute(0, 2, 3, 1).reshape(c.w.shape[0], -1)
+            np.testing.assert_array_equal(A.numpy(),
                                           np.asarray(weights[pb["A"][k]]))
             for mine, idx in ((c.f, pb["f"][k]), (c.b, pb["b"][k])):
                 ref = np.asarray(weights[idx]).reshape(-1)
@@ -183,7 +185,9 @@ def test_folded_tables_equal_reference(case):
 @pytest.mark.parametrize("case", OP_CASES)
 def test_prologue_equals_compiled_reference(case):
     """The stage input quantizes by the float32 reciprocal of the scale, as
-    the reference's compiled prologue does (XLA rewrites ``x / s_in``)."""
+    the reference's compiled prologue does (XLA rewrites ``x / s_in``); the
+    codes are contiguous NCHW from a channels-last input too (the kernel
+    reads them in place)."""
     _, cin, _, _, _, st, H = case
     rng = np.random.default_rng(2)
     x = (rng.standard_normal((2, cin, H, H)) * 20).astype(np.float32)
@@ -193,7 +197,11 @@ def test_prologue_equals_compiled_reference(case):
         jnp.asarray(x)))
     ref = ref[:, :, sn.HALO:sn.HALO + g.S].reshape(
         2, -1, g.R, g.RS)[..., :g.R]
-    q = ts.stagen_prologue(torch.as_tensor(x), s_in).numpy()
+    t = torch.as_tensor(x)
+    q_cl = ts.stagen_prologue(t.to(memory_format=torch.channels_last), s_in)
+    assert q_cl.is_contiguous()
+    q = ts.stagen_prologue(t, s_in).numpy()
+    np.testing.assert_array_equal(q_cl.numpy(), q)
     if st == 2:     # the reference's space-to-depth phase planes
         q = q.reshape(2, cin, g.R, 2, g.R, 2).transpose(0, 3, 5, 1, 2, 4)
         q = q.reshape(2, 4 * cin, g.R, g.R)
@@ -510,3 +518,458 @@ def test_fuse_all_pla_both_directions(ref_nets, tmp_path):
     np.testing.assert_array_equal(np.asarray(back.program(xs)),
                                   np.asarray(jnet.program(xs)))
     assert back.graph.to_json() == jnet.graph.to_json()
+
+
+# ------------------------------------- the block kernel's layouts, in numpy
+#
+# numpy copies of csrc/stagen.cu, one block launch per residual block: each
+# form's output tile and input region (with the stride-2 forms' four phase
+# planes), the swizzled channel-last planes and weight slices read at the
+# kernel's addresses, the weight stream consumed slice by slice in the
+# kernel's order, the epilogues with their zeroed padding pixels, the
+# staging and the stores.  The 64-byte rows these addresses name are what
+# the kernel's ldmatrix loads hand to mma.sync as fragments (the fragment
+# layout of stage64's kernels, checked in test_torch_stage64.py).  Driven
+# over the packed stream, the copies must give stagen_plain's output bit for
+# bit.
+
+# form -> (tile rows, tile cols, input-region pixels, first-conv rows)
+GEO = {0: (14, 14, 256, 256), 1: (14, 14, 324, 256),
+       2: (14, 14, 4 * 289, 256), 3: (7, 14, 4 * 120, 480)}
+SP = 200
+
+
+def _swz(p, chunk):
+    return (p << 6) | ((chunk ^ ((p >> 1) & 3)) << 4)
+
+
+_C = np.arange(64)
+
+
+def _at(p):
+    """(len(p), 64) byte offsets of the channel-last rows p."""
+    return _swz(p[:, None], _C[None, :] >> 4) + (_C[None, :] & 15)
+
+
+def _x_pixel(form, p, y0, x0):
+    if form == 0:
+        return y0 - 1 + p // 16, x0 - 1 + p % 16, np.ones(p.shape, bool)
+    if form == 1:
+        return y0 - 2 + p // 18, x0 - 2 + p % 18, np.ones(p.shape, bool)
+    pp, pw, rh, rw = (289, 17, 32, 32) if form == 2 else (120, 15, 14, 28)
+    oy, ox = (2 * y0 - 3, 2 * x0 - 3) if form == 2 else (2 * y0 - 1,
+                                                          2 * x0 - 1)
+    pl, pos = p // pp, p % pp
+    ry, rx = 2 * (pos // pw) + (pl >> 1), 2 * (pos % pw) + (pl & 1)
+    return oy + ry, ox + rx, (ry <= rh) & (rx <= rw)
+
+
+def _c1(form, r, t):
+    """First conv: source pixel of row r at tap t (t = 0 for a 1x1)."""
+    dy, dx = t // 3, t % 3
+    if form == 1:
+        return (r // 16) * 18 + r % 16 + dy * 18 + dx
+    if form == 2:
+        return ((r // 16) * 17 + r % 16 + ((dy & 1) * 2 + (dx & 1)) * 289
+                + (dy >> 1) * 17 + (dx >> 1))
+    return r
+
+
+def _c2(form, m, t):
+    """The 3x3 on t1 / mid: source pixel of output pixel m at tap t."""
+    dy, dx = t // 3, t % 3
+    if form == 3:
+        return ((m // 14) * 15 + m % 14 + ((dy & 1) * 2 + (dx & 1)) * 120
+                + (dy >> 1) * 15 + (dx >> 1))
+    return (m // 14) * 16 + m % 14 + dy * 16 + dx
+
+
+def _res_px(form, m):
+    i, j = m // 14, m % 14
+    return {0: (i + 1) * 16 + j + 1, 1: (i + 2) * 18 + j + 2,
+            2: 3 * 289 + (i + 1) * 17 + j + 1, 3: 3 * 120 + i * 15 + j}[form]
+
+
+def _t1_inside(form, r, y0, x0, H, R):
+    if form in (0, 3):
+        gy, gx, ok = _x_pixel(form, r, y0, x0)
+        side = H
+    else:
+        gy, gx, ok, side = y0 - 1 + r // 16, x0 - 1 + r % 16, True, R
+    return ok & (gy >= 0) & (gy < side) & (gx >= 0) & (gx < side)
+
+
+class _Tile:
+    """One output tile's run of the kernel: its planes (flat int8 shared
+    memory) and its place in the weight stream."""
+
+    def __init__(self, stream):
+        self.stream, self.k, self.zeroed = stream, 0, 0
+
+    def mma(self, src, npix, slabs, px, taps):
+        """(rows, 64) int64 accumulators over the next taps x slabs slices:
+        A rows read at _swz(px(tap), chunk), B (o, c) at _swz(o, c >> 4)."""
+        acc = np.zeros((len(px(0)), 64))
+        # the lane addresses of the B ldmatrix loads name the same bytes
+        lane = np.arange(32)
+        b_row = (lane & 7) + 8 * (lane >> 4)
+        for kh in range(2):
+            for n4 in range(4):
+                chunk = 2 * kh + ((lane >> 3) & 1)
+                addr = ((n4 * 16 + b_row) * 64
+                        + ((chunk ^ ((b_row >> 1) & 3)) << 4))
+                assert (addr == _swz(n4 * 16 + b_row, chunk)).all()
+        for t in range(taps):
+            p = px(t)
+            assert p.min() >= 0 and p.max() < npix
+            for s in range(slabs):
+                sl = self.stream[self.k % len(self.stream)]
+                self.k += 1
+                A = src[s * npix * 64 + _at(p)].astype(np.float64)
+                B = sl[_at(_C)].astype(np.float64)
+                acc += A @ B.T          # exact: |acc| < 2^53
+        return acc.astype(np.int64)
+
+    def plane(self, dst, npix, n, rows, acc, f, b, inside=None):
+        """t1 / t2 / mid: trunc-fold codes of rows into slab n; 0 at the
+        rows `inside` marks as padding."""
+        v = _requant_np(acc, f[64 * n:64 * n + 64], b[64 * n:64 * n + 64])
+        if inside is not None:
+            self.zeroed += int((v[~inside] != 0).sum())
+            v[~inside] = 0
+        dst[n * npix * 64 + _at(rows)] = v
+
+
+def _affine_np(acc, f, b):
+    return acc.astype(np.float32) * f + b
+
+
+def _requant_np(acc, f, b):
+    return np.clip(_affine_np(acc, f, b), 0.0, 127.99).astype(np.int8)
+
+
+def _x_from_nchw(xn, form, cs, y0, x0, H):
+    """A stage's first block: the input region gathered from the stage's
+    (C, H, H) int8 NCHW codes as load_nchw does, element i of the loop at
+    channel i // XPIX, region pixel i % XPIX; channels >= C and pixels off
+    the image (or in a phase plane's pad) are 0.  Every byte is written."""
+    XPIX = GEO[form][2]
+    i = np.arange(cs * 64 * XPIX)
+    c, p = i // XPIX, i % XPIX
+    gy, gx, ok = _x_pixel(form, p, y0, x0)
+    ok &= (c < xn.shape[0]) & (gy >= 0) & (gy < H) & (gx >= 0) & (gx < H)
+    dst = (c >> 6) * XPIX * 64 + _swz(p, (c >> 4) & 3) + (c & 15)
+    assert np.array_equal(np.sort(dst), i)
+    X = np.zeros(cs * XPIX * 64, np.int8)
+    X[dst[ok]] = xn.reshape(-1)[((c * H + gy) * H + gx)[ok]]
+    return X
+
+
+def _emulate_block(xh, H, blk, zero_pad=True, nchw=False):
+    """The block kernel on an (N, H, H, cin) int8 NHWC plane, or (``nchw``,
+    a stage's first block) on the stage's (N, C, H, H) int8 codes (numpy)."""
+    form = blk.form
+    TH, TW, XPIX, C1R = GEO[form]
+    OUT = TH * TW
+    stream, tab = blk.stream.numpy(), blk.tab.numpy()
+    N, cin = xh.shape[0], blk.widths()[0]
+    bot = blk.kind == "bottleneck"
+    wid = [ts._cpad(c.w.shape[0]) for c in blk.convs]
+    cmid, cout = wid[0], wid[-1]
+    cs, ms, os_ = cin // 64, cmid // 64, cout // 64
+    offs = np.cumsum([0] + [2 * w for w in wid])
+    f1, b1 = tab[0:wid[0]], tab[wid[0]:offs[1]]
+    f2, b2 = tab[offs[1]:offs[1] + wid[1]], tab[offs[1] + wid[1]:offs[2]]
+    fin = (f2, b2) if not bot else (tab[offs[2]:offs[2] + cout],
+                                    tab[offs[2] + cout:offs[3]])
+    fd, bd = tab[offs[-1]:offs[-1] + cout], tab[offs[-1] + cout:]
+    sx = np.float32(blk.sx_res)
+    R = H // blk.stride
+    ty, tx = -(-R // TH), -(-R // TW)
+    out = (np.zeros((N, cout, R, R), np.float32) if blk.last
+           else np.zeros((N, R, R, cout), np.int8))
+    m = np.arange(OUT)
+    zeroed = 0
+    for img in range(N):
+        for t in range(ty * tx):
+            y0, x0 = (t // tx) * TH, (t % tx) * TW
+            tile = _Tile(stream)
+            if nchw:
+                X = _x_from_nchw(xh[img], form, cs, y0, x0, H)
+            else:
+                X = np.zeros(cs * XPIX * 64, np.int8)
+                p = np.arange(XPIX)
+                gy, gx, ok = _x_pixel(form, p, y0, x0)
+                ok &= (gy >= 0) & (gy < H) & (gx >= 0) & (gx < H)
+                for s in range(cs):
+                    X[s * XPIX * 64 + _at(p[ok])] = \
+                        xh[img, gy[ok], gx[ok], 64 * s:64 * s + 64]
+            T1 = np.zeros((ms if bot else os_) * C1R * 64, np.int8)
+            r = np.arange(C1R)
+            inside = (_t1_inside(form, r, y0, x0, H, R) if zero_pad
+                      else None)
+            if bot:
+                for g0 in range(0, C1R, 256):
+                    rows = r[g0:g0 + 256]
+                    for n in range(ms):
+                        acc = tile.mma(X, XPIX, cs, lambda t: rows, 1)
+                        tile.plane(T1, C1R, n, rows, acc, f1, b1,
+                                   None if inside is None
+                                   else inside[g0:g0 + 256])
+                T2 = np.zeros(ms * OUT * 64, np.int8)
+                for n in range(ms):
+                    acc = tile.mma(T1, C1R, ms, lambda t: _c2(form, m, t), 9)
+                    tile.plane(T2, OUT, n, m, acc, f2, b2)
+                src, npix, slabs, taps = T2, OUT, ms, 1
+                px = lambda t: m                                 # noqa: E731
+            else:
+                for n in range(os_):
+                    acc = tile.mma(X, XPIX, cs, lambda t: _c1(form, r, t), 9)
+                    tile.plane(T1, C1R, n, r, acc, f1, b1, inside)
+                src, npix, slabs, taps = T1, C1R, os_, 9
+                px = lambda t: _c2(form, m, t)                   # noqa: E731
+            for n in range(os_):
+                ch = slice(64 * n, 64 * n + 64)
+                if blk.proj is not None:
+                    acc = tile.mma(X, XPIX, cs,
+                                   lambda t: _res_px(form, m), 1)
+                    v = np.clip(np.floor(_affine_np(acc, fd[ch], bd[ch])),
+                                -127, 127).astype(np.int8)
+                    RES = np.zeros(OUT * 64, np.int8)
+                    RES[_at(m)] = v
+                    res = RES[_at(m)]
+                else:
+                    res = X[n * XPIX * 64 + _at(_res_px(form, m))]
+                acc = tile.mma(src, npix, slabs, px, taps)
+                y = (_affine_np(acc, fin[0][ch], fin[1][ch])
+                     + res.astype(np.float32) * sx)
+                oy, ox = y0 + m // TW, x0 + m % TW
+                keep = (oy < R) & (ox < R)
+                if blk.last:
+                    # channel-major staging, NCHW pixel pairs
+                    stg = np.zeros(64 * SP, np.float32)
+                    bf = torch.from_numpy(np.maximum(y, 0)).to(
+                        torch.bfloat16).float().numpy()
+                    stg[_C[None, :] * SP + m[:, None]] = bf
+                    pair = m[0::2]
+                    for c in range(64):
+                        for e in range(2):
+                            mm = pair + e
+                            k = keep[mm]
+                            out[img, 64 * n + c, oy[mm][k], ox[mm][k]] = \
+                                stg[c * SP + mm[k]]
+                else:
+                    stg = np.zeros(OUT * 64, np.int8)
+                    stg[_at(m)] = np.clip(y, 0.0, 127.99).astype(np.int8)
+                    for q in range(4):
+                        rows16 = stg[(_swz(m, q))[:, None] + np.arange(16)]
+                        out[img, oy[keep], ox[keep],
+                            64 * n + 16 * q:64 * n + 16 * q + 16] = \
+                            rows16[keep]
+            assert tile.k == len(stream)      # one pass of the stream per tile
+            zeroed += tile.zeroed
+    return out, R, zeroed
+
+
+def _conv_np(x, h, c, epi, res=None, sx=0.0):
+    """The per-conv kernel on an (N, h, h, Cp) int8 NHWC plane (numpy): the
+    implicit GEMM over its packed tap-major A operand, then epilogue epi."""
+    A, f, b = (v.numpy() for v in c.padded)
+    k, st, pad = c.k, c.stride, c.k // 2
+    A = A.reshape(A.shape[0], k * k, x.shape[3]).astype(np.float64)
+    ho = (h + 2 * pad - k) // st + 1
+    xp = np.pad(x, ((0, 0), (pad, pad), (pad, pad), (0, 0))).astype(np.float64)
+    acc = np.zeros((x.shape[0], ho, ho, A.shape[0]))
+    for t in range(k * k):
+        dy, dx = divmod(t, k)
+        acc += xp[:, dy:dy + st * (ho - 1) + 1:st,
+                  dx:dx + st * (ho - 1) + 1:st] @ A[:, t].T
+    v = _affine_np(acc.astype(np.int64), f, b)
+    if epi == ts.EPI_RELU:
+        return np.clip(v, 0.0, 127.99).astype(np.int8), ho
+    if epi == ts.EPI_RES:
+        return np.clip(np.floor(v), -127, 127).astype(np.int8), ho
+    y = v + res.astype(np.float32) * np.float32(sx)
+    if epi == ts.EPI_SUM:
+        return np.clip(y, 0.0, 127.99).astype(np.int8), ho
+    bf = torch.from_numpy(np.maximum(y, 0)).to(torch.bfloat16).float()
+    return bf.numpy().transpose(0, 3, 1, 2), ho
+
+
+def _emulate_convs(x, h, blk):
+    """A block too wide to fuse, conv by conv as _run_convs launches it."""
+    res = x
+    if blk.proj is not None:
+        res, _ = _conv_np(x, h, blk.proj, ts.EPI_RES)
+    t, ho = x, h
+    for c in blk.convs[:-1]:
+        t, ho = _conv_np(t, ho, c, ts.EPI_RELU)
+    return _conv_np(t, ho, blk.convs[-1],
+                    ts.EPI_LAST if blk.last else ts.EPI_SUM, res, blk.sx_res)
+
+
+def _emulate_stage(xq, plan, zero_pad=True):
+    """stagen_stage's chain: fused blocks through the block kernel's copy
+    (the first reading the NCHW codes), the others conv by conv."""
+    cur, h, zeroed = xq.numpy(), xq.shape[2], 0
+    for i, blk in enumerate(plan.blocks):
+        if blk.fused:
+            cur, h, z = _emulate_block(cur, h, blk, zero_pad, nchw=i == 0)
+            zeroed += z
+        else:
+            if i == 0:
+                cp = ts._cpad(cur.shape[1])
+                cur = np.pad(cur.transpose(0, 2, 3, 1),
+                             ((0, 0),) * 3 + ((0, cp - cur.shape[1]),))
+            cur, h = _emulate_convs(cur, h, blk)
+    return torch.from_numpy(cur[:, :plan.cout]).to(torch.bfloat16), zeroed
+
+
+# (case, batch): the three fused 224 geometries at full width (ResNet-50
+# stagen_0 and stagen_1, ResNet-18 stagen_0), the narrow padded stages of
+# chip_smoke.py and OP_CASES, a one-block basic stage with a projection, an
+# identity-first bottleneck stage, and ragged sides R = 24 and 50 that no
+# 14-pixel tile divides
+LAYOUT_CASES = [
+    (("bottleneck", 64, 64, 256, 3, 1, 56), 1),
+    (("bottleneck", 256, 128, 512, 4, 2, 56), 1),
+    (("basic", 64, 128, 128, 2, 2, 56), 2),
+    (("bottleneck", 64, 64, 256, 2, 1, 50), 2),
+    (("basic", 16, 32, 32, 2, 2, 100), 1),
+    (("bottleneck", 16, 8, 32, 2, 2, 48), 2),
+    (("basic", 16, 32, 32, 1, 1, 28), 1),
+    (("bottleneck", 32, 8, 32, 3, 1, 24), 1),
+    # too wide to fuse: ResNet-18 layer3 at 448 (the entry conv by conv,
+    # the identity block fused), two blocks of ResNet-50 layer3 at 384
+    (("basic", 128, 256, 256, 2, 2, 56), 1),
+    (("bottleneck", 512, 256, 1024, 2, 2, 48), 1),
+] + [(c, 2) for c in OP_CASES]
+
+
+@pytest.mark.parametrize("case,batch", LAYOUT_CASES)
+def test_block_kernel_layouts_reproduce_plain(case, batch):
+    """The block kernel's decomposition (numpy copies of its tiles, phase
+    planes, swizzled planes and weight slices, stream order, epilogues and
+    stores) gives stagen_plain's output bit for bit; t1 / mid pixels outside
+    the image must be zeroed, not requantized (trunc(b) is not 0)."""
+    x, blocks, w = _stage(case, 7, batch)
+    plan = ts._fold(_torch_w(w), blocks, torch.device("cpu"))
+    xq = ts.stagen_prologue(torch.as_tensor(x), plan.s_in)
+    ref = ts.stagen_plain(xq, plan)
+    got, zeroed = _emulate_stage(xq, plan)
+    assert got.shape == ref.shape
+    assert torch.equal(got, ref)
+    # a basic block's mid pixels outside the image see part of the 3x3
+    # window; a bottleneck's t1 pixels there are trunc(b), 0 at these biases
+    assert zeroed > 0 or case[0] == "bottleneck"
+
+
+# (stage, which blocks fuse): every stage of ResNet-18/34 and ResNet-50/101/
+# 152 at full width, entry and one identity block (later identity blocks are
+# the same form); the 224 stages all fuse, the wide ones go conv by conv
+ROUTE_CASES = [
+    (("basic", 64, 64, 64, 2, 1, 56), [True, True]),
+    (("basic", 64, 128, 128, 2, 2, 56), [True, True]),
+    (("basic", 128, 256, 256, 2, 2, 56), [False, True]),
+    (("basic", 256, 512, 512, 2, 2, 48), [False, False]),
+    (("bottleneck", 64, 64, 256, 2, 1, 56), [True, True]),
+    (("bottleneck", 256, 128, 512, 2, 2, 56), [True, True]),
+    (("bottleneck", 512, 256, 1024, 2, 2, 48), [False, False]),
+    (("bottleneck", 1024, 512, 2048, 2, 2, 48), [False, False]),
+]
+
+
+@pytest.mark.parametrize("case,fused", ROUTE_CASES)
+def test_every_eligible_width_has_a_kernel_route(case, fused):
+    """Every block of an eligible stage has a CUDA route whatever its width:
+    one block kernel launch where its layout fits 227 KB (the budget is the
+    kernel's layout: the input region, t1 / mid, t2, the projection
+    residual, the staging and the weight ring), else the per-conv kernel,
+    with its packed operands.  The layout's size does not depend on R."""
+    _, blocks, w = _stage(case, 3, 1)
+    plan = ts._fold(_torch_w(w), blocks, torch.device("cpu"))
+    assert [b.fused for b in plan.blocks] == fused
+    for blk in plan.blocks:
+        cin, cmid, cout = blk.widths()
+        proj = blk.proj is not None
+        need = ts._block_smem(blk.form, cin, cmid, cout, proj, blk.last)
+        th, tw, xpix, c1 = GEO[blk.form]
+        assert need >= xpix * cin + th * tw * 64 + 6 * 4096
+        assert blk.fused == (need <= 232448)
+        every = blk.convs + ([blk.proj] if proj else [])
+        if blk.fused:
+            assert blk.stream is not None and all(c.padded is None
+                                                  for c in every)
+            continue
+        assert blk.stream is None and blk.tab is None
+        for c in every:
+            A, f, b = c.padded
+            wp = ts._padded(c)
+            assert A.shape == (wp.shape[0], wp.shape[2] * wp.shape[1])
+            # A[o, t*Cp + c] = w[o, c, tap t]
+            np.testing.assert_array_equal(
+                A.numpy().reshape(wp.shape[0], wp.shape[2], wp.shape[1]),
+                wp.transpose(0, 2, 1))
+            np.testing.assert_array_equal(f.numpy()[:c.f.shape[0]], c.f.numpy())
+            assert not f.numpy()[c.f.shape[0]:].any()
+    # the 224 stages of both models fuse every block (ResNet-50's layer2
+    # entry is the tightest: 227808 of 232448 bytes)
+    assert ts._block_smem(3, 256, 128, 512, True, False) == 227808
+
+
+@pytest.mark.parametrize("case,bias", [
+    (("basic", 16, 32, 32, 2, 2, 48), 1.0),
+    (("bottleneck", 16, 8, 32, 2, 1, 24), 30.0),
+    (("bottleneck", 16, 8, 32, 2, 2, 48), 30.0)])
+def test_block_kernel_padding_pixels_must_be_zero(case, bias):
+    """t1 / mid pixels outside the image are the next conv's zero padding:
+    with them zeroed the copy of the kernel equals stagen_plain; requantized
+    like the others (a bottleneck's then hold trunc(b) > 0 at large biases)
+    it does not."""
+    x, blocks, w = _stage(case, 7, 1)
+    w = [v if isinstance(v, tuple) else v * bias for v in w]
+    plan = ts._fold(_torch_w(w), blocks, torch.device("cpu"))
+    xq = ts.stagen_prologue(torch.as_tensor(x), plan.s_in)
+    ref = ts.stagen_plain(xq, plan)
+    got, zeroed = _emulate_stage(xq, plan)
+    assert torch.equal(got, ref) and zeroed > 0
+    got, _ = _emulate_stage(xq, plan, zero_pad=False)
+    assert not torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("case", FOLD_CASES)
+def test_stream_slices_hold_the_weights(case):
+    """Every slice of a block's packed stream, read at _swz(o, c >> 4) +
+    (c & 15), is the conv's (64 outputs, tap, 64 input channels) block, in
+    the kernel's order; the tables are (f, b) per conv, padded."""
+    _, blocks, w = _stage(case, 1, 1)
+    plan = ts._fold(_torch_w(w), blocks, torch.device("cpu"))
+    for blk in plan.blocks:
+        assert blk.form == ts._FORMS[blk.kind, blk.stride]
+        st = blk.stream.numpy()
+        assert st.shape[1] == 4096 and blk.stream.dtype == torch.int8
+        seen = {}
+        convs = blk.convs + ([blk.proj] if blk.proj is not None else [])
+        for k, sl in enumerate(st):
+            W = sl[_at(_C)]
+            for ci, c in enumerate(convs):
+                wp = ts._padded(c)
+                for n in range(wp.shape[0] // 64):
+                    for t in range(wp.shape[2]):
+                        for s in range(wp.shape[1] // 64):
+                            if np.array_equal(W, wp[64 * n:64 * n + 64,
+                                                    64 * s:64 * s + 64, t]):
+                                seen.setdefault((ci, n, t, s), k)
+        want = sum((c.w.shape[0] + 63) // 64 * c.w.shape[2] ** 2
+                   * ((c.w.shape[1] + 63) // 64) for c in convs)
+        assert len(seen) == want
+        tab = blk.tab.numpy()
+        pos = 0
+        for c in convs:
+            o = ts._cpad(c.f.shape[0])
+            for v in (c.f, c.b):
+                np.testing.assert_array_equal(tab[pos:pos + c.f.shape[0]],
+                                              v.numpy())
+                assert not tab[pos + c.f.shape[0]:pos + o].any()
+                pos += o
+        assert pos == tab.size
