@@ -3,11 +3,14 @@
 Loads the same JSON flow IR and ``.pla`` files as the JAX package
 (``planer_tpu``), quantizes the same way (int8 or float8_e4m3fn
 per-output-channel weights, calibrated static activation scales, int8 codes
-chained across convs and residual adds) and runs INT8 ResNet-18 and
-ResNet-50 and weight-only FP8 ResNet-50 on one CUDA card, with the fused
-entry stage, under ``quantize(fuse="all")`` the fused body stages, and the
-weight-only GEMM as hand-written ``sm_90a`` kernels.  Entry points run
-on the card (``device="cuda"``) unless the caller passes ``device="cpu"``.
+chained across convs and residual adds) and runs the JAX package's model
+configurations on one CUDA card: INT8 ResNet-18 and ResNet-50, weight-only
+FP8 ResNet-50, YOLO-v3 (raw heads or the in-graph box decode, with host
+score filter and NMS in ``models.yolo_post``) and UNet (whole or tiled,
+``utils.tile``).  The fused entry stage, under ``quantize(fuse="all")`` the
+fused body stages, and the weight-only GEMM run as hand-written ``sm_90a``
+kernels; NMS is native C++ on the host (``native``).  Entry points run on
+the card (``device="cuda"``) unless the caller passes ``device="cpu"``.
 
 The package imports torch and numpy only, never jax, ml_dtypes or
 planer_tpu.
@@ -18,8 +21,9 @@ from .runtime.net import Net
 from .quant import calibrate_act_scales, quantize_net
 from .convert import net_from_arrays
 from . import models
+from .utils import tile
 
 __all__ = ["Graph", "Layer", "FlowEdge", "pack_weights", "unpack_weights",
            "read_net", "InferenceSession", "save_pla", "load_graph", "Net",
            "calibrate_act_scales", "quantize_net", "net_from_arrays",
-           "models"]
+           "models", "tile"]

@@ -20,8 +20,15 @@ package's numerics, not just its math:
     conv, go through ``ops/kernels/gemm.dense_q``, which picks the numerics
     of the reference's kernel branch or of its fallback by shape.
 
-Shape-like operands (reshape targets) may arrive as numpy arrays or host
-tensors folded by the program's static pass.
+The ops YOLO-v3 and UNet add copy the reference's arithmetic where torch
+would round otherwise: ``leakyrelu`` multiplies by alpha rounded to x's
+dtype, and the binary ops and ``concat`` promote by dtype alone, as
+``jnp.result_type`` does (torch lets a 0-dim operand lose to a dimensioned
+one of the same kind).
+
+Shape-like operands (reshape targets, slice bounds, upsample scales) may
+arrive as numpy arrays or as host or device tensors: the program folds them
+on the host, the float32 executor hands them over as it holds them.
 """
 from __future__ import annotations
 
@@ -31,13 +38,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import resize as _rs
 from .padding import resolve_conv_pads, resolve_pool_pads
 from .qtypes import QTensor
 
-__all__ = ["conv2d", "dense", "maxpool", "global_average_pool", "relu",
-           "add", "batchnorm", "flatten", "reshape", "shape_of", "stage64",
-           "stagen", "return_",
-           "conv_s8", "quantize", "scalar", "to_dtype"]
+__all__ = ["conv2d", "conv_transpose2d", "dense", "maxpool",
+           "global_average_pool", "relu", "leakyrelu", "sigmoid", "exp",
+           "clip", "add", "mul", "batchnorm", "flatten", "reshape",
+           "transpose", "concat", "gather", "slice_", "expand", "unsqueeze",
+           "shape_of", "cast", "arange", "upsample", "stage64", "stagen",
+           "return_", "conv_s8", "quantize", "scalar", "to_dtype"]
 
 
 # opt-in, as in the JAX package (jax_ops._PALLAS_CONV1X1): route quantized
@@ -71,6 +81,16 @@ def scalar(v, like: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     device: the float is rounded to ``dtype`` once, as JAX rounds a weakly
     typed Python scalar, and the op stays a true tensor-tensor op."""
     return _scalar_cached(float(v), dtype, like.device)
+
+
+def _promote(a, b):
+    """a and b in their common dtype as ``jnp.result_type`` picks it: by
+    dtype alone, where torch would let a 0-dim tensor take the dimensioned
+    operand's dtype of the same kind."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a, b
 
 
 def _im2col(x, kh, kw, strides, pads, dilations):
@@ -255,6 +275,33 @@ def _conv2d(x, K, B=None, group=1, strides=(1, 1), dilations=(1, 1),
     return out
 
 
+def conv_transpose2d(x, K, B=None, strides=(2, 2), dilations=(1, 1),
+                     pads=(0, 0, 0, 0), output_padding=(0, 0), group=1):
+    """ONNX ConvTranspose.  Its weight layout, (C_in, C_out/g, kh, kw), is
+    ``F.conv_transpose2d``'s; a QTensor weight dequantizes (scales on axis
+    1) to x's dtype, as in the reference.  ONNX pads may differ per side, so
+    the transposed conv runs unpadded and the result is cropped by the pads
+    (a negative ``F.pad``), with ``output_padding`` rows and columns added
+    at the far end: those lie past every input tap, so they hold the bias
+    alone, as in the reference's input-dilated conv with the IO-transposed,
+    flipped kernel (jax_ops.conv_transpose2d)."""
+    strides = (2, 2) if strides is None else tuple(int(s) for s in strides)
+    dilations = (1, 1) if dilations is None else tuple(int(d) for d in dilations)
+    pt, pl, pb, pr = (0, 0, 0, 0) if pads is None else (int(p) for p in pads)
+    oph, opw = (0, 0) if output_padding is None else (
+        int(p) for p in output_padding)
+    if isinstance(K, QTensor):
+        K = K.dequant(x.dtype)
+    out = F.conv_transpose2d(x, K.to(x.dtype), None, strides, 0, 0,
+                             int(group), dilations)
+    crop = (-pl, opw - pr, -pt, oph - pb)
+    if any(crop):
+        out = F.pad(out, crop)
+    if B is not None:
+        out = out + B.reshape(1, -1, 1, 1).to(out.dtype)
+    return out
+
+
 # --------------------------------------------------------------------------
 # dense / pool
 # --------------------------------------------------------------------------
@@ -303,6 +350,40 @@ def relu(x):
     return torch.clamp_min(x, 0)   # exact on int8 codes
 
 
+def leakyrelu(x, alpha=0.2):
+    """where(x > 0, x, x * alpha) with alpha rounded to x's dtype first, as
+    the reference computes it: in bf16, 0.1 becomes 0.10009765625, where
+    ``F.leaky_relu`` would multiply by the double 0.1 and round once."""
+    return torch.where(x > 0, x, x * scalar(alpha, x, x.dtype))
+
+
+def sigmoid(x):
+    """1 / (1 + exp(-x)), each step rounded to x's dtype: the reference's
+    ``jax.nn.sigmoid`` compiles to these four ops, so in bf16 it rounds
+    three times where ``torch.sigmoid`` rounds once (a third of bf16 outputs
+    one ulp apart)."""
+    return 1 / (1 + torch.exp(-x))
+
+
+def exp(x):
+    return torch.exp(x)
+
+
+def clip(x, min_t=None, max_t=None, min=None, max=None):
+    """Clip to [min, max] (attributes) or [min_t, max_t] (operands); no
+    bound is the identity.  A number bound is rounded to x's dtype, as JAX
+    takes a weakly typed scalar; a tensor bound promotes with x."""
+    lo = min if min is not None else min_t
+    hi = max if max is not None else max_t
+    for v, f in ((lo, torch.maximum), (hi, torch.minimum)):
+        if v is None:
+            continue
+        if not isinstance(v, torch.Tensor):
+            v = scalar(v, x, x.dtype)
+        x = f(*_promote(x, v.to(x.device)))
+    return x
+
+
 def add(a, b, qadd=None, compute_dtype=None):
     """Elementwise add, optionally in the quantized-activation domain.
 
@@ -310,6 +391,7 @@ def add(a, b, qadd=None, compute_dtype=None):
     dtype is int8 is codes at that scale; ``so`` non-None re-emits the sum
     as codes at that scale, else the sum comes out in float."""
     if qadd is None:
+        a, b = _promote(a, b)
         return a + b
     sa, sb, so = qadd
     sa = sa if (sa is not None and a.dtype == torch.int8) else None
@@ -333,6 +415,11 @@ def add(a, b, qadd=None, compute_dtype=None):
     return v.to(to_dtype(compute_dtype) or torch.float32)
 
 
+def mul(a, b):
+    a, b = _promote(a, b)
+    return a * b
+
+
 def batchnorm(x, K, B):
     return x * K + B
 
@@ -341,10 +428,23 @@ def batchnorm(x, K, B):
 # shape ops (shape operands are host values)
 # --------------------------------------------------------------------------
 
-def _host_ints(v) -> list[int]:
+def _host_array(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
         v = v.cpu().numpy()
-    return np.asarray(v).astype(np.int64).reshape(-1).tolist()
+    return np.asarray(v)
+
+
+def _host_ints(v) -> list[int]:
+    return _host_array(v).astype(np.int64).reshape(-1).tolist()
+
+
+def _tensor(v, like=None) -> torch.Tensor:
+    """A shape-chain value (numpy array or tensor) as a tensor, on
+    ``like``'s device when given."""
+    dev = None if like is None else like.device
+    if isinstance(v, torch.Tensor):
+        return v if dev is None else v.to(dev)
+    return torch.as_tensor(np.asarray(v), device=dev)
 
 
 def reshape(x, shp):
@@ -361,6 +461,81 @@ def shape_of(x):
     return np.asarray(tuple(x.shape), dtype=np.int64)
 
 
+def cast(x, dtype="float32"):
+    if dtype == "flaot32":      # the original planer's typo, accepted
+        dtype = "float32"
+    return _tensor(x).to(to_dtype(dtype))
+
+
+def arange(start, end, delta):
+    """The int64 range as a host value, from integer bounds (floats
+    truncate, as ``int`` does)."""
+    start, end, delta = (int(_host_array(v)) for v in (start, end, delta))
+    return torch.arange(start, end, delta, dtype=torch.int64)
+
+
+def transpose(x, axis=None):
+    if axis is None:
+        return x.permute(*reversed(range(x.ndim)))
+    return x.permute(*_host_ints(axis))
+
+
+def concat(*xs, axis=0):
+    """Join along ``axis`` in the inputs' common dtype (jnp.result_type):
+    the decode's f32 ``xy`` and bf16 ``wh`` join as f32."""
+    xs = [_tensor(v) for v in xs]
+    dt = functools.reduce(torch.promote_types, [v.dtype for v in xs])
+    return torch.cat([v.to(dt) for v in xs], dim=int(axis))
+
+
+def gather(x, idx, axis=0):
+    """``jnp.take`` along ``axis``: negative indices count from the end; a
+    0-dim index drops the axis."""
+    x = _tensor(x)
+    axis = int(axis) % x.ndim
+    idx = _tensor(idx, x).long()
+    idx = torch.where(idx < 0, idx + x.shape[axis], idx)
+    out = torch.index_select(x, axis, idx.reshape(-1))
+    return out.reshape(tuple(x.shape[:axis]) + tuple(idx.shape)
+                       + tuple(x.shape[axis + 1:]))
+
+
+def slice_(x, starts, ends, axes=None, steps=None):
+    """ONNX Slice with Python's slice semantics per axis (negative starts
+    and ends count from the end, out-of-range ones clamp), negative steps
+    included."""
+    starts, ends = _host_ints(starts), _host_ints(ends)
+    axes = (list(range(len(starts))) if axes is None else _host_ints(axes))
+    steps = [1] * len(starts) if steps is None else _host_ints(steps)
+    for s, e, a, st in zip(starts, ends, axes, steps):
+        a %= x.ndim
+        start, stop, step = slice(s, e, st).indices(x.shape[a])
+        if step > 0:
+            x = x[(slice(None),) * a + (slice(start, stop, step),)]
+        else:
+            idx = torch.arange(start, stop, step, device=x.device)
+            x = torch.index_select(x, a, idx)
+    return x
+
+
+def expand(x, shp):
+    """Broadcast x to ``np.broadcast_shapes(x.shape, shp)`` (ONNX Expand)."""
+    x = _tensor(x)
+    return x.broadcast_to(torch.broadcast_shapes(tuple(x.shape),
+                                                 tuple(_host_ints(shp))))
+
+
+def unsqueeze(x, axes=None):
+    """``jnp.expand_dims``: axes index the output, negative ones from its
+    end."""
+    x = _tensor(x)
+    axes = _host_ints(axes)
+    nd = x.ndim + len(axes)
+    for a in sorted(a % nd for a in axes):
+        x = x.unsqueeze(a)
+    return x
+
+
 def flatten(x, axis=1):
     lead = int(np.prod(x.shape[:axis], dtype=np.int64)) if axis else 1
     return x.reshape(lead, -1)
@@ -368,6 +543,64 @@ def flatten(x, axis=1):
 
 def return_(*xs):
     return xs
+
+
+# --------------------------------------------------------------------------
+# upsample (index plans on the host, ops/resize.py)
+# --------------------------------------------------------------------------
+
+def _is_repeat(idx: np.ndarray, in_size: int) -> int:
+    """k where idx == repeat(arange(in_size), k), else 0."""
+    if idx.size % max(in_size, 1):
+        return 0
+    k = idx.size // in_size
+    if k and np.array_equal(idx, np.repeat(np.arange(in_size), k)):
+        return k
+    return 0
+
+
+def _resize_nchw(x, out_hw, scales, mode, coord_mode, nearest_mode):
+    h, w = x.shape[-2:]
+    oh, ow = out_hw
+    kh, kw = scales
+    if mode == "nearest":
+        ri = _rs.nearest_plan(h, oh, kh, coord_mode, nearest_mode)
+        ci = _rs.nearest_plan(w, ow, kw, coord_mode, nearest_mode)
+        rk, ck = _is_repeat(ri, h), _is_repeat(ci, w)
+        if rk and ck:       # integer-factor stamping: one broadcast copy
+            n, c = x.shape[:2]
+            y = x[:, :, :, None, :, None].expand(n, c, h, rk, w, ck)
+            return y.reshape(n, c, oh, ow)
+        ri, ci = (torch.as_tensor(i, dtype=torch.long, device=x.device)
+                  for i in (ri, ci))
+        return x[..., ri[:, None], ci[None, :]]
+    if mode in ("linear", "bilinear"):
+        # the lerp weights in x's dtype, as the reference takes them
+        rlo, rhi, rf = _rs.linear_plan(h, oh, kh, coord_mode)
+        clo, chi, cf = _rs.linear_plan(w, ow, kw, coord_mode)
+        rlo, rhi, clo, chi = (torch.as_tensor(i, dtype=torch.long,
+                                              device=x.device)
+                              for i in (rlo, rhi, clo, chi))
+        rf = torch.as_tensor(rf.reshape(-1, 1), device=x.device).to(x.dtype)
+        cf = torch.as_tensor(cf, device=x.device).to(x.dtype)
+        rows = x[..., rlo, :] * (1 - rf) + x[..., rhi, :] * rf
+        return rows[..., clo] * (1 - cf) + rows[..., chi] * cf
+    raise ValueError(f"unsupported resize mode {mode!r}")
+
+
+def upsample(x, k, mode="nearest", size=None):
+    """ONNX Upsample: scales ``k`` (the last two are H and W) or, with empty
+    scales, an explicit ``size``; asymmetric coordinates, floor rounding."""
+    k = _host_array(k).astype(np.float64).ravel()
+    if k.size == 0:
+        if size is None or np.size(size) == 0:
+            raise ValueError("Upsample with empty scales needs a size")
+        ss = _host_ints(size)
+        out_hw, sc = _rs.resize_shape(x.shape[-2:], sizes=(ss[-2], ss[-1]))
+        return _resize_nchw(x, out_hw, sc, mode, "asymmetric", "floor")
+    out_hw, sc = _rs.resize_shape(x.shape[-2:],
+                                  scales=(float(k[-2]), float(k[-1])))
+    return _resize_nchw(x, out_hw, sc, mode, "asymmetric", "floor")
 
 
 # --------------------------------------------------------------------------

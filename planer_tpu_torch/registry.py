@@ -1,7 +1,8 @@
 """Opcode registry: IR opcode -> torch fn + float32-executor fn + metadata.
 
 The port's counterpart of ``planer_tpu/registry.py``, holding the opcodes of
-the INT8 ResNet-18 main path, the fused body stage ``stagen`` and
+the ResNets (with the fused stages ``stage64`` and ``stagen``), of YOLO-v3
+(its backbone, FPN heads and in-graph box decode) and of UNet, and
 ``return``.  Each opcode has two functions:
 
   * ``fn`` — what the program runs: the quantized fast paths (int8 codes,
@@ -66,6 +67,7 @@ def _stagen_f32(x, *w, blocks=None, **kw):
 
 # compute
 _reg("conv", tops.conv2d, _conv_f32)
+_reg("convtranspose", tops.conv_transpose2d)
 _reg("dense", tops.dense)
 _reg("maxpool", tops.maxpool)
 _reg("gap", tops.global_average_pool)
@@ -76,15 +78,32 @@ _reg("stagen", tops.stagen, _stagen_f32, cached=True)
 
 # elementwise
 _reg("relu", tops.relu)
+_reg("leakyrelu", tops.leakyrelu)
+_reg("sigmoid", tops.sigmoid)
+_reg("clip", tops.clip)
+_reg("exp", tops.exp)
 _reg("add", tops.add, _add_f32)
+_reg("mul", tops.mul)
 _reg("batchnorm", tops.batchnorm)
 
 # shape
 _reg("reshape", tops.reshape, static_args=(1,))
 _reg("flatten", tops.flatten)
+_reg("transpose", tops.transpose)
+_reg("concat", tops.concat)
+_reg("gather", tops.gather)
+_reg("slice", tops.slice_, static_args=(1, 2, 3, 4))
+_reg("expand", tops.expand, static_args=(1,))
+_reg("unsqueeze", tops.unsqueeze, static_args=(1,))
 # the int64 shape as a host value; the program records it as a 'shape'
 # application, so it never reaches the device
 _reg("shape", tops.shape_of)
+_reg("cast", tops.cast)
+# an int64 host value from integer bounds (the decode's grid)
+_reg("range", tops.arange, static_args=(0, 1, 2))
+
+# resize
+_reg("upsample", tops.upsample, static_args=(1,))
 
 # control
 _reg("return", tops.return_)

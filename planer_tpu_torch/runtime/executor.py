@@ -8,7 +8,9 @@ on dequantized weights, quantization annotations ignored.  It is the
 correctness oracle of the quantized program and the engine of calibration.
 
 On a CUDA device it turns TF32 off for both convolutions and matmuls, so
-float32 means float32 (cuDNN convolutions default to TF32).
+float32 means float32 (cuDNN convolutions default to TF32).  Host values
+that shape ops return (``shape``'s numpy array, ``range``'s host tensor)
+move to the device where the next op takes them.
 """
 from __future__ import annotations
 
@@ -66,6 +68,12 @@ class Executor:
         return env
 
     # ------------------------------------------------------------- internals
+    def _on_device(self, v):
+        if isinstance(v, np.ndarray) or (isinstance(v, torch.Tensor)
+                                         and v.device != self.device):
+            return torch.as_tensor(v, device=self.device)
+        return v
+
     def run_range(self, env: dict[str, Any], start: int, stop: int,
                   debug: bool = False,
                   trace_cb: Callable | None = None) -> dict[str, Any]:
@@ -79,7 +87,7 @@ class Executor:
                 # chain semantics: the first layer reads edge.src, the rest
                 # read the edge dst written by their predecessor
                 src = edge.src if li == 0 else edge.dst
-                args = [env.get(s) for s in src]
+                args = [self._on_device(env.get(s)) for s in src]
                 if li == len(edge.layers) - 1:
                     for s in set(edge.src):
                         if s in env and self.life.get(s, -1) <= i:

@@ -65,6 +65,9 @@ def test_importing_the_port_loads_no_jax():
             "import planer_tpu_torch.ops.kernels.stagen\n"
             "import planer_tpu_torch.ops.kernels.gemm\n"
             "import planer_tpu_torch.ops.kernels.build\n"
+            "import planer_tpu_torch.native, planer_tpu_torch.utils.tile\n"
+            "import planer_tpu_torch.models.yolo_post\n"
+            "import planer_tpu_torch.models.eval\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -81,6 +84,7 @@ def test_entry_points_default_to_cuda():
         assert pt.Net().device.type == "cuda"
         return
     for make in (lambda: pt.Net(), lambda: models.resnet18(),
+                 lambda: models.yolov3(), lambda: models.unet(),
                  lambda: pt.read_net("missing-model-path")):
         with pytest.raises((RuntimeError, FileNotFoundError)) as e:
             make()
@@ -89,6 +93,7 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError):
         models.resnet18()
     assert models.resnet18(device="cpu").device.type == "cpu"
+    assert models.unet(base=8, depth=2, device="cpu").device.type == "cpu"
 
 
 def _block_args(device="cpu", n=1, r=16):
