@@ -106,7 +106,30 @@
    whole image at batch 1, the executor leg (p99 <= ``LEG3_UNET_BF16``),
    the tiled run (windows of 256, margin 64) timed, tiled against whole as
    tests/test_models.py bounds it on that test's net and image, step
-   times.
+   times;
+16. path 11: a torchvision-layout ResNet-18 ``nn.Module`` (seeded weights
+   and BatchNorm statistics, on the card) through ``torch2planer`` ->
+   ``read_net`` on the card -> optimize -> calibrate on 4 synthetic images
+   -> static INT8 -> bf16: first the unquantized import in float32 against
+   the module's own forward (TF32 off, max|d|/max|y| <= 1e-4); then one
+   stage64 and the same opcodes as ``models.resnet18()`` through the same
+   pipeline, batch 1, 8 and 64 with the stem and both block kernels
+   launched once per forward, the plain leg bit-identical, the float32
+   executor leg (p99 <= 0.05, margin-filtered argmax 1.0), step times;
+17. path 12: the same module written as opset-13 ONNX bytes by this
+   script's writer (the port's protobuf codec) and read by ``read_net``:
+   the same checks, its quantized weights array-equal to path 11's and its
+   logits bit-identical to path 11's on the same requests;
+18. path 13: one ONNX op zoo applying the op library's opcodes (``erf`` in
+   both modes), a GraphBuilder graph with ``const``, bidirectional ONNX
+   LSTM and GRU (seq 16, batch 8, hidden 128, with and without
+   ``sequence_lens``) and a graph cut at ``nonzero`` whose tail runs
+   ``topk`` and ``reducesum`` in the float32 executor, each on the card
+   against the same graph on the port's CPU path: integer, boolean and
+   index outputs equal, floats within the CPU tests' classes (bit-equal,
+   4 ulps of the largest magnitude for transcendental ops, 1e-6 of it for
+   sum-order ops, 1e-5 for the GEMM ones), each opcode's largest gap
+   printed.
 
 ``python3 chip_smoke.py --profile DIR`` adds a torch.profiler pass over the
 steps of the main path, of both ResNet-50 programs of path 2 and of paths
@@ -1118,6 +1141,544 @@ def unet_path(torch, models, synthetic_images, card, counters, profile):
             "tiled_ms": tiled_ms, "steps": steps}
 
 
+# --------------------------------------------------------------------------
+# the frontends (paths 11 and 12) and the op library (path 13)
+# --------------------------------------------------------------------------
+
+def resnet18_module(seed=SEED):
+    """A torchvision-layout ResNet-18 ``nn.Module`` (BasicBlocks with a
+    conv + BatchNorm downsample, the shortcut added after the second BN)
+    with weights and BatchNorm running statistics from a seeded
+    ``torch.Generator``: He-scaled convs, BN gains near 1, running means
+    and variances away from their defaults, so the fold does real work."""
+    import torch
+    from torch import nn
+
+    class BasicBlock(nn.Module):
+        def __init__(self, cin, cout, stride):
+            super().__init__()
+            self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
+            self.bn1 = nn.BatchNorm2d(cout)
+            self.relu = nn.ReLU(inplace=True)
+            self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
+            self.bn2 = nn.BatchNorm2d(cout)
+            self.downsample = None
+            if stride != 1 or cin != cout:
+                self.downsample = nn.Sequential(
+                    nn.Conv2d(cin, cout, 1, stride, bias=False),
+                    nn.BatchNorm2d(cout))
+
+        def forward(self, x):
+            identity = x
+            out = self.relu(self.bn1(self.conv1(x)))
+            out = self.bn2(self.conv2(out))
+            if self.downsample is not None:
+                identity = self.downsample(x)
+            out += identity
+            return self.relu(out)
+
+    class ResNet18(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+            self.bn1 = nn.BatchNorm2d(64)
+            self.relu = nn.ReLU(inplace=True)
+            self.maxpool = nn.MaxPool2d(3, 2, 1)
+            cin = 64
+            for i, c in enumerate((64, 128, 256, 512)):
+                s = 1 if i == 0 else 2
+                setattr(self, f"layer{i + 1}", nn.Sequential(
+                    BasicBlock(cin, c, s), BasicBlock(c, c, 1)))
+                cin = c
+            self.avgpool = nn.AdaptiveAvgPool2d((1, 1))
+            self.fc = nn.Linear(512, 1000)
+
+        def forward(self, x):
+            x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+            x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+            return self.fc(torch.flatten(self.avgpool(x), 1))
+
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(shape, scale, shift=0.0):
+        return torch.randn(shape, generator=g) * scale + shift
+
+    m = ResNet18().eval()
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, nn.Conv2d):
+                fan_in = mod.in_channels * mod.kernel_size[0] ** 2
+                mod.weight.copy_(randn(mod.weight.shape,
+                                       (2.0 / fan_in) ** 0.5))
+            elif isinstance(mod, nn.BatchNorm2d):
+                c = mod.num_features
+                mod.weight.copy_(randn(c, 0.1, 1.0))
+                mod.bias.copy_(randn(c, 0.1))
+                mod.running_mean.copy_(randn(c, 0.1))
+                mod.running_var.copy_(
+                    0.8 + 0.4 * torch.rand(c, generator=g))
+            elif isinstance(mod, nn.Linear):
+                mod.weight.copy_(randn(mod.weight.shape, 512 ** -0.5))
+                mod.bias.copy_(randn(1000, 0.1))
+    return m
+
+
+def _attrs(P, **attrs):
+    """ONNX attributes from Python values (int, float, str, int list)."""
+    out = []
+    for k, v in attrs.items():
+        if isinstance(v, bool) or isinstance(v, int):
+            out.append(P.AttributeProto(name=k, i=int(v), type=P.ATTR.INT))
+        elif isinstance(v, float):
+            out.append(P.AttributeProto(name=k, f=v, type=P.ATTR.FLOAT))
+        elif isinstance(v, str):
+            out.append(P.AttributeProto(name=k, s=v.encode(),
+                                        type=P.ATTR.STRING))
+        elif isinstance(v, np.ndarray):
+            out.append(P.AttributeProto(name=k, t=P.from_array(v),
+                                        type=P.ATTR.TENSOR))
+        else:
+            out.append(P.AttributeProto(name=k, ints=[int(i) for i in v],
+                                        type=P.ATTR.INTS))
+    return out
+
+
+class OnnxWriter:
+    """A node-by-node ONNX graph written with the port's protobuf codec
+    (``planer_tpu_torch.frontend.onnx_proto``): no ``onnx`` package."""
+
+    def __init__(self):
+        from planer_tpu_torch.frontend import onnx_proto as P
+        self.P, self.nodes, self.inits = P, [], []
+
+    def init(self, name, array):
+        self.inits.append(self.P.from_array(np.asarray(array), name))
+        return name
+
+    def node(self, op, ins, n_out=1, out=None, **attrs):
+        name = f"{op.lower()}_{len(self.nodes)}"
+        outs = ([out] if out else
+                [f"{name}_{i}" for i in range(n_out)])
+        self.nodes.append(self.P.NodeProto(
+            input=list(ins), output=outs, name=name, op_type=op,
+            attribute=_attrs(self.P, **attrs)))
+        return outs[0] if len(outs) == 1 else tuple(outs)
+
+    def model(self, inputs, outputs, opset=13):
+        """``inputs`` and ``outputs``: (name, shape) pairs (f32)."""
+        P = self.P
+        g = P.GraphProto(
+            node=self.nodes, name="g", initializer=self.inits,
+            input=[P.ValueInfoProto(n, 1, list(s)) for n, s in inputs],
+            output=[P.ValueInfoProto(n, 1, list(s)) for n, s in outputs])
+        return P.ModelProto(graph=g, opset=opset, producer_name="chip_smoke")
+
+
+def resnet18_onnx(module, path):
+    """Write ``resnet18_module``'s weights as an opset-13 ONNX model, node
+    by node: Conv, BatchNormalization, Relu, MaxPool, Add,
+    GlobalAveragePool, Flatten, Gemm (transB = 1, torch's (O, I) weight)."""
+    w = OnnxWriter()
+
+    def t(name, p):
+        return w.init(name, p.detach().cpu().numpy())
+
+    def conv(x, m, name):
+        k, s, p = m.kernel_size, m.stride, m.padding
+        return w.node("Conv", [x, t(f"{name}.weight", m.weight)],
+                      kernel_shape=k, strides=s, pads=[p[0], p[1]] * 2,
+                      dilations=[1, 1], group=1)
+
+    def bn(x, m, name):
+        return w.node("BatchNormalization", [x] + [
+            t(f"{name}.{k}", getattr(m, k))
+            for k in ("weight", "bias", "running_mean", "running_var")],
+            epsilon=float(m.eps))
+
+    x = w.node("Relu", [bn(conv("x", module.conv1, "conv1"), module.bn1,
+                           "bn1")])
+    x = w.node("MaxPool", [x], kernel_shape=[3, 3], strides=[2, 2],
+               pads=[1, 1, 1, 1])
+    for li in range(1, 5):
+        for bi, blk in enumerate(getattr(module, f"layer{li}")):
+            pre = f"layer{li}.{bi}"
+            y = w.node("Relu", [bn(conv(x, blk.conv1, f"{pre}.conv1"),
+                                   blk.bn1, f"{pre}.bn1")])
+            y = bn(conv(y, blk.conv2, f"{pre}.conv2"), blk.bn2, f"{pre}.bn2")
+            if blk.downsample is not None:
+                x = bn(conv(x, blk.downsample[0], f"{pre}.downsample.0"),
+                       blk.downsample[1], f"{pre}.downsample.1")
+            x = w.node("Relu", [w.node("Add", [y, x])])
+    x = w.node("Flatten", [w.node("GlobalAveragePool", [x])], axis=1)
+    w.node("Gemm", [x, t("fc.weight", module.fc.weight),
+                    t("fc.bias", module.fc.bias)], out="y", transB=1)
+    w.P.save_model(w.model([("x", ["N", 3, 224, 224])],
+                           [("y", ["N", 1000])]), path)
+    return path
+
+
+def op_weights(net):
+    """The weight arrays each conv, dense and fused-stage application reads,
+    in flow order: what two imports of one model must agree on."""
+    g, lm = net.graph, net.graph.layer_map()
+    idx = g.init_index()
+    out = []
+    for e in g.flow:
+        for li, lname in enumerate(e.layers):
+            if lm[lname].op in ("conv", "dense", "stage64", "stagen"):
+                src = e.src if li == 0 else e.dst
+                for s in src[1:]:
+                    if s in idx:
+                        out.append(net.weights[idx[s]])
+                        info = g.quant.get(s)
+                        if info:
+                            out.append(net.weights[idx[info["scale"]]])
+    return out
+
+
+def frontend_path(torch, pt, calibrate, synthetic_images, label, path,
+                  requests, imgs, counters, card, module):
+    """Paths 11 and 12: read_net on the card -> optimize -> calibrate on 4
+    synthetic images -> quantize("int8", activations="static") -> bf16;
+    one stage64, the stem and block launches per forward, leg 1
+    bit-identical, leg 3 against the float32 executor, and the unquantized
+    import in float32 against the module's own forward (TF32 off)."""
+    t0 = time.perf_counter()
+    fnet = pt.read_net(path)                   # device="cuda" by default
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        rels = []
+        for x in imgs[:2]:
+            ref = module(torch.as_tensor(x, device="cuda")).cpu().numpy()
+            rels.append(float(np.abs(fnet(x) - ref).max()
+                              / np.abs(ref).max()))
+    log(f"{label} import: the unquantized net in float32 vs the module's "
+        f"own forward on the card (TF32 off), max|d|/max|y| per batch of "
+        f"16: {rels}")
+    if max(rels) > 1e-4:
+        raise SystemExit(f"{label}: the imported net is {max(rels)} away "
+                         f"from the module")
+    net = pt.read_net(path)
+    net.optimize()
+    calibrate(net, synthetic_images(4, (3, 224, 224), seed=11, batch=2))
+    net.quantize("int8", activations="static")
+    net.astype_compute("bfloat16")
+    log(f"{label} built: {time.perf_counter() - t0:.1f} s")
+    if sum(l.op == "stage64" for l in net.graph.layers) != 1:
+        raise SystemExit(f"{label}: the entry stage was not fused")
+    answers, fwd, (launches, falloff) = drive(net, requests, counters)
+    check_counts(f"{label} stage64 launches", launches, {
+        "stem_pool_requant": fwd, "basic_block": fwd,
+        "basic_block_last": fwd})
+    check_counts(f"{label} stage64 falloff", falloff, {})
+    leg1 = plain_leg(net, requests, answers, f"{label} kernels vs plain "
+                     f"stage64 (same program)", need_same=True)
+    leg3 = agreement([(net(x), net(x, engine="oracle")) for x in imgs],
+                     f"{label} vs float32 executor", 0.05)
+    steps = step_times(torch, net, requests, label, card)
+    return {"net": net, "answers": answers, "launches": launches,
+            "forwards": fwd, "import": max(rels), "leg1": leg1,
+            "leg3": leg3, "steps": steps}
+
+
+def frontend_paths(torch, pt, models_net, calibrate, synthetic_images,
+                   requests, imgs, counters, card, work):
+    """Path 11 (torch2planer) and path 12 (the same module as ONNX bytes)."""
+    from collections import Counter
+    t0 = time.perf_counter()
+    module = resnet18_module().cuda()          # read through .cpu()
+    pla = pt.torch2planer(module, os.path.join(work, "r18_fx"))
+    onnx = resnet18_onnx(module, os.path.join(work, "r18_onnx.onnx"))
+    p11 = frontend_path(torch, pt, calibrate, synthetic_images, "path 11 "
+                        "torch2planer resnet18", pla, requests, imgs,
+                        counters, card, module)
+    ops = Counter(l.op for l in p11["net"].graph.layers)
+    want = Counter(l.op for l in models_net.graph.layers)
+    log(f"path 11 opcodes {dict(ops)}")
+    if ops != want:
+        raise SystemExit(f"path 11: opcodes {dict(ops)} are not "
+                         f"models.resnet18()'s {dict(want)}")
+    p12 = frontend_path(torch, pt, calibrate, synthetic_images, "path 12 "
+                        "onnx resnet18", onnx, requests, imgs, counters,
+                        card, module)
+    a, b = op_weights(p11["net"]), op_weights(p12["net"])
+    if len(a) != len(b) or not all(
+            x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b)):
+        raise SystemExit("path 12: the quantized weights are not path 11's")
+    same = all(np.array_equal(p11["answers"][k], p12["answers"][k])
+               for k in requests)
+    log(f"path 12 vs path 11: {len(a)} weight arrays array-equal, logits "
+        f"{'bit-identical' if same else 'NOT bit-identical'} on the same "
+        f"requests")
+    if not same:
+        raise SystemExit("path 12: logits differ from path 11's")
+    for p in (p11, p12):
+        del p["net"]
+    log(f"paths 11-12: {time.perf_counter() - t0:.1f} s")
+    return p11, p12
+
+
+# path 13's tolerance classes, by opcode (tests/test_torch_ops_lib.py
+# states the CPU tests' own): bit-equal unless listed; transcendental ops
+# within 4 f32 ulps of the output's largest magnitude; sum-order ops within
+# 1e-6 of it; the GEMM ops within 1e-5
+# the op library's opcodes (every opcode of the JAX registry that no model
+# builder of the port emits), each of which path 13 must apply
+OP_LIBRARY = {
+    "abs", "argmax", "argmin", "averagepool", "ceil", "const",
+    "constantofshape", "depthtospace", "div", "elu", "equal", "erf", "floor",
+    "gelu", "gmp", "greater", "greaterorequal", "gru", "hardsigmoid",
+    "identity", "instancenormalization", "log", "logsoftmax", "lstm",
+    "matmul", "max", "mean", "min", "neg", "nonzero", "pad", "pow", "prelu",
+    "reciprocal", "reducemax", "reducemean", "reducemin", "reduceprod",
+    "reducesum", "resize", "round", "scatternd", "sign", "softmax",
+    "softplus", "spacetodepth", "split", "sqrt", "squeeze", "sub", "sum",
+    "tanh", "tile", "topk", "where"}
+TRANSCENDENTAL = {"tanh", "erf", "sqrt", "log", "pow", "elu", "softplus",
+                  "gelu"}
+SUM_ORDER = {"softmax", "logsoftmax", "instancenormalization", "reducesum",
+             "reducemean", "reduceprod"}
+GEMM_ORDER = {"matmul", "lstm", "gru"}
+
+
+def op_zoo(rng):
+    """One ONNX graph applying the op library's opcodes (all but ``const``,
+    ``lstm``, ``gru`` and ``nonzero``, which have graphs of their own) to
+    x (2, 8, 12, 12); returns (model, [(output, opcode)])."""
+    w, outs = OnnxWriter(), []
+
+    def f32(a):
+        return np.asarray(a, np.float32)
+
+    def i64(a):
+        return np.asarray(a, np.int64)
+
+    def out(opcode, name):
+        for n in (name if isinstance(name, tuple) else (name,)):
+            outs.append((n, opcode))
+        return name
+
+    def op(opcode, onnx_op, ins, n_out=1, **attrs):
+        return out(opcode, w.node(onnx_op, ins, n_out, **attrs))
+
+    x = "x"
+    a = op("abs", "Abs", [x])
+    xp = w.node("Add", [a, w.init("c01", f32(0.1))])
+    ng = op("neg", "Neg", [x])
+    fl = op("floor", "Floor", [x])
+    ce = op("ceil", "Ceil", [x])
+    rd = op("round", "Round", [x])
+    op("sign", "Sign", [x])
+    op("sub", "Sub", [x, ng])
+    op("div", "Div", [x, xp])
+    op("reciprocal", "Reciprocal", [xp])
+    op("pow", "Pow", [xp, w.init("c17", f32(1.7))])
+    op("equal", "Equal", [fl, ce])
+    gt = op("greater", "Greater", [x, ng])
+    op("greaterorequal", "GreaterOrEqual", [fl, rd])
+    op("where", "Where", [gt, x, ng])
+    op("min", "Min", [x, ng, fl])
+    op("max", "Max", [x, ng])
+    op("sum", "Sum", [x, ng, a])
+    op("mean", "Mean", [x, a, xp])
+    op("prelu", "PRelu", [x, w.init("slope", f32(rng.random(8) * 0.3))])
+    op("hardsigmoid", "HardSigmoid", [x], alpha=0.2, beta=0.5)
+    op("tanh", "Tanh", [x])
+    op("erf", "Erf", [x])
+    op("sqrt", "Sqrt", [xp])
+    op("log", "Log", [xp])
+    op("elu", "Elu", [x], alpha=0.7)
+    op("softplus", "Softplus", [x])
+    op("gelu", "Gelu", [x])
+    op("gelu", "Gelu", [x], approximate="tanh")
+    op("softmax", "Softmax", [x], axis=1)
+    op("logsoftmax", "LogSoftmax", [x], axis=-1)
+    op("instancenormalization", "InstanceNormalization",
+       [x, w.init("in_s", f32(0.5 + rng.random(8))),
+        w.init("in_b", f32(rng.standard_normal(8)))], epsilon=1e-5)
+    op("reducesum", "ReduceSum", [a], axes=[2, 3])
+    op("reducemean", "ReduceMean", [a], axes=[1], keepdims=0)
+    op("reducemax", "ReduceMax", [x], axes=[3])
+    op("reducemin", "ReduceMin", [x], axes=[0, 2])
+    q = w.node("Add", [w.node("Mul", [a, w.init("c03", f32(0.05))]),
+                       w.init("c09", f32(0.9))])
+    op("reduceprod", "ReduceProd", [q], axes=[3])
+    gm = op("gmp", "GlobalMaxPool", [x])
+    op("matmul", "MatMul", [x, w.init("mm_w", f32(
+        rng.standard_normal((12, 7)) * 0.3))])
+    op("averagepool", "AveragePool", [x], kernel_shape=[3, 3],
+       strides=[2, 2], pads=[1, 1, 1, 1])
+    op("averagepool", "AveragePool", [x], kernel_shape=[3, 3],
+       strides=[2, 2], ceil_mode=1, count_include_pad=1)
+    op("split", "Split", [x, w.init("split", i64([3, 5]))], 2, axis=1)
+    op("tile", "Tile", [x, w.init("reps", i64([1, 1, 2, 1]))])
+    op("pad", "Pad", [x, w.init("pads", i64([0, 0, 1, 2, 0, 0, 2, 1])),
+                      w.init("padv", f32(0.5))])
+    op("pad", "Pad", [x, w.init("pads2", i64([0, 0, 2, 1, 0, 0, 1, 2]))],
+       mode="reflect")
+    op("squeeze", "Squeeze", [gm, w.init("sq_axes", i64([2, 3]))])
+    op("constantofshape", "ConstantOfShape", [w.init("cs_shape",
+                                                     i64([2, 3]))],
+       value=f32([2.5]))
+    op("scatternd", "ScatterND", [
+        x, w.init("sc_idx", i64([[0, 1], [1, 7], [0, 3]])),
+        w.init("sc_upd", f32(rng.standard_normal((3, 12, 12))))])
+    op("spacetodepth", "SpaceToDepth", [x], blocksize=2)
+    op("depthtospace", "DepthToSpace", [x], blocksize=2)
+    op("depthtospace", "DepthToSpace", [x], blocksize=2, mode="CRD")
+    op("topk", "TopK", [x, w.init("k", i64([3]))], 2, axis=-1)
+    op("argmax", "ArgMax", [x], axis=1)
+    op("argmin", "ArgMin", [x], axis=2, keepdims=0, select_last_index=1)
+    op("resize", "Resize", [x, "", w.init("rs_scales", f32(
+        [1, 1, 1.5, 2.0]))], mode="linear")
+    op("resize", "Resize", [x, "", "", w.init("rs_sizes", i64(
+        [2, 8, 17, 7]))], mode="nearest",
+       coordinate_transformation_mode="asymmetric", nearest_mode="floor")
+    op("identity", "Identity", [x])
+    op("identity", "Dropout", [x])
+    names = [n for n, _ in outs]
+    return w.model([("x", [2, 8, 12, 12])], [(n, []) for n in names]), outs
+
+
+def const_graph():
+    """``const`` has no ONNX op (the converter folds Constant nodes into
+    the weight table): a GraphBuilder graph x * const + const."""
+    from planer_tpu_torch.models.builder import GraphBuilder
+    b = GraphBuilder(["x"])
+    c = b.const(value=np.linspace(0.5, 1.5, 8).reshape(8, 1, 1).tolist(),
+                dtype="float32")
+    k = b.const(value=3, dtype="int64")
+    b.ret([b.mul("x", c), k])
+    g, w = b.build()
+    return g, w, [("mul", "mul"), ("const", "const")]
+
+
+def rnn_onnx(op, rng, lens, L=16, N=8, D=64, H=128):
+    """A bidirectional ONNX LSTM or GRU at seq L, batch N, hidden H, with
+    ``sequence_lens`` or without."""
+    w = OnnxWriter()
+    g = {"LSTM": 4, "GRU": 3}[op]
+
+    def p(shape, s):
+        return np.asarray(rng.standard_normal(shape) * s, np.float32)
+
+    ins = ["x", w.init("W", p((2, g * H, D), D ** -0.5)),
+           w.init("R", p((2, g * H, H), H ** -0.5)),
+           w.init("B", p((2, 2 * g * H), 0.1)),
+           w.init("lens", np.asarray(rng.integers(1, L + 1, N), np.int32))
+           if lens else "",
+           w.init("h0", p((2, N, H), 0.5))]
+    kw = {"hidden_size": H, "direction": "bidirectional"}
+    if op == "GRU":
+        kw["linear_before_reset"] = 1
+    outs = w.node(op, ins, 3 if op == "LSTM" else 2, **kw)
+    opcode = op.lower()
+    return (w.model([("x", [L, N, D])], [(n, []) for n in outs]),
+            [(n, opcode) for n in outs])
+
+
+def tail_onnx():
+    """x -> Relu -> NonZero (the cut) -> Cast -> ReduceSum -> TopK: the
+    program runs the relu on the card and the rest in the float32
+    executor (the host tail)."""
+    w = OnnxWriter()
+    nz = w.node("NonZero", [w.node("Relu", ["x"])])
+    rs = w.node("ReduceSum", [w.node("Cast", [nz], to=1)], axes=[0],
+                keepdims=0)
+    vals, idx = w.node("TopK", [rs, w.init("k", np.asarray([5], np.int64))],
+                       2)
+    outs = [(nz, "nonzero"), (rs, "reducesum"), (vals, "topk"),
+            (idx, "topk")]
+    return w.model([("x", [2, 8, 12, 12])], [(n, []) for n, _ in outs]), outs
+
+
+def zoo_gap(out, ref, opcode):
+    """(gap, bound) of one output, card against CPU, by the opcode's
+    tolerance class; integer, boolean and bit-equal classes need gap 0."""
+    a, b = np.asarray(out), np.asarray(ref)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise SystemExit(f"path 13 {opcode}: {a.dtype}{a.shape} on the card, "
+                         f"{b.dtype}{b.shape} on the CPU")
+    if a.dtype.kind != "f":
+        return float((a != b).sum()), 0.0
+    big = float(np.abs(b).max()) if b.size else 0.0
+    gap = float(np.abs(a.astype(np.float64) - b).max()) if b.size else 0.0
+    if opcode in TRANSCENDENTAL:
+        return gap, 4 * float(np.spacing(np.float32(big)))
+    if opcode in SUM_ORDER:
+        return gap, 1e-6 * big
+    if opcode in GEMM_ORDER:
+        return gap, 1e-5 * big
+    return gap, 0.0
+
+
+def op_library_path(torch, pt, card):
+    """Path 13: the op zoo (in both erf modes), a GraphBuilder graph with
+    ``const``, bidirectional ONNX LSTM and GRU (seq 16, batch 8, hidden 128,
+    one with sequence_lens) and a graph cut at nonzero with topk and
+    reducesum in the tail, each on the card against the same graph on the
+    port's CPU path.  Prints each opcode's largest gap."""
+    from planer_tpu_torch.frontend.onnx_convert import convert_model
+    from planer_tpu_torch.ops import modes
+    from planer_tpu_torch.runtime.net import Net
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    x = np.asarray(rng.standard_normal((2, 8, 12, 12)) * 2, np.float32)
+    cases = []
+    model, outs = op_zoo(rng)
+    cases.append(("zoo", *convert_model(model), outs, x, ("exact", "lut")))
+    g, w, outs = const_graph()
+    cases.append(("const", g, w, outs, x, ("exact",)))
+    for op, lens in (("LSTM", True), ("GRU", False), ("LSTM", False),
+                     ("GRU", True)):
+        model, outs = rnn_onnx(op, rng, lens)
+        xs = np.asarray(rng.standard_normal((16, 8, 64)), np.float32)
+        cases.append((f"{op.lower()}{' lens' if lens else ''}",
+                      *convert_model(model), outs, xs, ("exact",)))
+    model, outs = tail_onnx()
+    cases.append(("tail", *convert_model(model), outs, x, ("exact",)))
+    gaps, cut = {}, None
+    for name, graph, weights, outs, xin, erf_modes in cases:
+        if not isinstance(weights, list):
+            from planer_tpu_torch.ir import unpack_weights
+            weights = unpack_weights(graph, weights)
+        card_net = Net(graph, weights, device="cuda")
+        cpu_net = Net(graph, weights, device="cpu")
+        if name == "tail":
+            cut = card_net.program.plan.cut
+            if cut != 1:
+                raise SystemExit(f"path 13: the tail graph cuts at {cut}")
+        for mode in erf_modes:
+            modes.set_erf_mode(mode)
+            try:
+                got, ref = outputs(card_net(xin)), outputs(cpu_net(xin))
+            finally:
+                modes.set_erf_mode("exact")
+            if len(got) != len(outs) or len(ref) != len(outs):
+                raise SystemExit(f"path 13 {name}: {len(got)} outputs, "
+                                 f"want {len(outs)}")
+            for (oname, opcode), a, b in zip(outs, got, ref):
+                key = opcode + ("[lut]" if opcode == "erf" and
+                                mode == "lut" else "")
+                gap, bound = zoo_gap(a, b, opcode)
+                if gap > bound:
+                    raise SystemExit(f"path 13 {name} {oname} ({opcode}, erf "
+                                     f"{mode}): gap {gap} > {bound}")
+                old = gaps.get(key, (0.0, 0.0))
+                gaps[key] = (max(old[0], gap), max(old[1], bound))
+    covered = {k.split("[")[0] for k in gaps}
+    if not OP_LIBRARY <= covered or "erf[lut]" not in gaps:
+        raise SystemExit(f"path 13 did not apply "
+                         f"{sorted(OP_LIBRARY - covered)}")
+    log(f"path 13 card vs CPU path, largest gap (bound) per opcode over "
+        f"{len(covered)} opcodes: " + ", ".join(
+            f"{k} {g:.3g} ({b:.3g})" for k, (g, b) in sorted(gaps.items())))
+    log(f"path 13: {time.perf_counter() - t0:.1f} s (host tail cut at flow "
+        f"edge {cut}; {card})")
+    return {"gaps": gaps, "opcodes": sorted(covered)}
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / "
                                  "CUDA port on one NVIDIA card.")
@@ -1389,6 +1950,15 @@ def main():
     p10 = unet_path(torch, models, synthetic_images, card, counters_all,
                     args.profile)
 
+    # ------------- paths 11-13: the frontends, the op library, the tail
+    import tempfile
+    import planer_tpu_torch as pt
+    with tempfile.TemporaryDirectory() as work:
+        p11, p12 = frontend_paths(torch, pt, net, calibrate_act_scales,
+                                  synthetic_images, requests, imgs,
+                                  [st.LAUNCHES, st.FALLOFF], card, work)
+    p13 = op_library_path(torch, pt, card)
+
     # ---------------------------------------------------- kernel table
     n = 64
     stem_bytes = n * 3 * 224 * 224 + 64 * 147 + 64 * 4 * 4 + n * 64 * 56 * 56
@@ -1434,6 +2004,8 @@ def main():
                        launches_one_call=l5["one-call"][name])
         else:
             row["launches"] = launches[name]
+            row["launches_path11"] = p11["launches"][name]
+            row["launches_path12"] = p12["launches"][name]
         rows.append(row)
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
@@ -1493,6 +2065,12 @@ def main():
         f"{p10['tiled_gate'][0]:.6g}/{p10['tiled_gate'][1]:.6g}), step "
         f"{p10['steps']} ms, tiled {p10['tiled_ms']:.1f} ms (printed, no "
         f"claim)")
+    log(f"path 11 (torch2planer): import max|d|/max|y| {p11['import']:.3g}, "
+        f"plain p99 {p11['leg1'][0]:.6g}, executor p99 {p11['leg3'][0]:.6g}, "
+        f"steps {p11['steps']} ms; path 12 (onnx): import "
+        f"{p12['import']:.3g}, executor p99 {p12['leg3'][0]:.6g}, steps "
+        f"{p12['steps']} ms; path 13: {len(p13['opcodes'])} opcodes on the "
+        f"card within their bounds (printed, no claim)")
     log(f"legs: plain-stage p99 {leg1[0]:.6g}; executor p99 {leg3[0]:.6g}; "
         f"path 2 plain p99 {leg1_50[0]:.6g}, fuse='all' executor gap p99 "
         f"{gap50[0]:.6g}, default-fuse executor p99 {leg3_50[0]:.6g}; "

@@ -1,6 +1,8 @@
-"""Model I/O: ``.pla`` (zip of json graph + npy weight blob) and loose
-``.json`` + ``.npy`` — wire-compatible with ``planer_tpu/io.py``, so either
-package reads what the other writes.  ONNX import is not ported yet.
+"""Model I/O: ``.pla`` (zip of json graph + npy weight blob), loose
+``.json`` + ``.npy``, and ``.onnx`` converted on the fly by the frontend —
+wire-compatible with ``planer_tpu/io.py``, so either package reads what the
+other writes.  A path is resolved in that order: ``.pla``, then ``.json``,
+then ``.onnx``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ import numpy as np
 from .ir import Graph, pack_weights
 from .runtime.net import Net
 
-__all__ = ["read_net", "InferenceSession", "save_pla", "load_graph"]
+__all__ = ["read_net", "InferenceSession", "save_pla", "load_graph",
+           "onnx2pla"]
 
 
 def load_graph(path: str):
@@ -33,10 +36,10 @@ def load_graph(path: str):
         blob = np.load(path + ".npy")
         return Graph.from_json_dict(body), blob
     if os.path.exists(path + ".onnx"):
-        raise NotImplementedError("ONNX import is not ported yet; convert "
-                                  "with planer_tpu.io.onnx2pla first")
+        from .frontend.onnx_convert import convert_onnx
+        return convert_onnx(path + ".onnx")
     raise FileNotFoundError(f"model {path!r} not found "
-                            f"(.pla/.json+.npy both missing)")
+                            f"(.pla/.json+.npy/.onnx all missing)")
 
 
 def read_net(path: str, device="cuda") -> Net:
@@ -62,3 +65,23 @@ def save_pla(path: str, graph: Graph, weights: list[np.ndarray]):
         f.writestr(base + ".json", graph.to_json())
         f.writestr(base + ".npy", bio.getvalue())
     return path + ".pla"
+
+
+def onnx2pla(path: str, zip: bool = True, quantize: str | None = None):
+    """Convert an .onnx file to .pla (or loose .json + .npy with
+    zip=False) beside it; ``quantize`` ("int8" or "fp8") stores quantized
+    weights.  Conversion runs nothing on a device."""
+    from .frontend.onnx_convert import convert_onnx
+    graph, blob = convert_onnx(path)
+    # quantize_net rewrites the host weights only
+    net = Net(graph, device="cpu")
+    net.load_weights(blob)
+    if quantize:
+        net.quantize(mode=quantize)
+    base = path[:-5] if path.endswith(".onnx") else path
+    if zip:
+        return save_pla(base, net.graph, net.weights)
+    with open(base + ".json", "w") as f:
+        f.write(net.graph.to_json())
+    np.save(base + ".npy", pack_weights(net.weights))
+    return base + ".json"

@@ -1,5 +1,5 @@
-"""PyTorch op library — the port's counterpart of ``planer_tpu/ops/jax_ops.py``
-for the ops on the INT8 ResNet-18 main path and the weight-only ResNet-50.
+"""PyTorch op library — the port's counterpart of ``planer_tpu/ops/jax_ops.py``:
+one function per opcode of the JAX package's registry.
 
 Each function takes and returns NCHW tensors on one device.  The precision
 branches of ``conv2d`` and the code-domain ``add`` reproduce the JAX
@@ -26,9 +26,20 @@ dtype, and the binary ops and ``concat`` promote by dtype alone, as
 ``jnp.result_type`` does (torch lets a 0-dim operand lose to a dimensioned
 one of the same kind).
 
+The rest of the op library computes what the JAX function computes as
+XLA compiles it, not what the ONNX spec says: a Python scalar in an
+expression is rounded to x's dtype first (JAX's weak typing; ``scalar``),
+``softplus`` is ``logaddexp(x, 0)``, ``gelu`` is ``0.5 * x * erfc(-x *
+sqrt(0.5))``, bf16 sums, means and products run in float32 and round once,
+``topk`` orders ties by index as ``lax.top_k`` does (a stable sort), and
+``div`` of integers is true division.  Index results (``topk``, ``argmax``,
+``argmin``, ``nonzero``) are int64, as ONNX has them; the JAX package
+without x64 gives int32 with the same values.
+
 Shape-like operands (reshape targets, slice bounds, upsample scales) may
 arrive as numpy arrays or as host or device tensors: the program folds them
 on the host, the float32 executor hands them over as it holds them.
+``const``, ``constantofshape`` and ``range`` return host values.
 """
 from __future__ import annotations
 
@@ -38,15 +49,27 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import modes as _modes
 from . import resize as _rs
 from .padding import resolve_conv_pads, resolve_pool_pads
 from .qtypes import QTensor
 
-__all__ = ["conv2d", "conv_transpose2d", "dense", "maxpool",
-           "global_average_pool", "relu", "leakyrelu", "sigmoid", "exp",
-           "clip", "add", "mul", "batchnorm", "flatten", "reshape",
-           "transpose", "concat", "gather", "slice_", "expand", "unsqueeze",
-           "shape_of", "cast", "arange", "upsample", "stage64", "stagen",
+__all__ = ["conv2d", "conv_transpose2d", "dense", "matmul", "maxpool",
+           "averagepool", "global_average_pool", "global_max_pool", "lstm",
+           "gru", "relu", "leakyrelu", "sigmoid", "hardsigmoid", "tanh",
+           "softmax", "logsoftmax", "exp", "log", "sqrt", "erf",
+           "reciprocal", "power", "clip", "add", "sub", "mul", "div",
+           "equal", "greater", "greater_or_equal", "where", "identity",
+           "absolute", "negative", "minimum", "maximum", "floor", "ceil",
+           "round_", "sign", "prelu", "elu", "softplus", "gelu",
+           "mean_variadic", "sum_variadic", "batchnorm",
+           "instance_normalization", "flatten", "reshape", "transpose",
+           "concat", "split", "gather", "slice_", "expand", "tile", "pad",
+           "squeeze", "unsqueeze", "shape_of", "cast", "const",
+           "constant_of_shape", "arange", "scatternd", "nonzero", "topk",
+           "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+           "reduce_prod", "argmax", "argmin", "space_to_depth",
+           "depth_to_space", "upsample", "resize_op", "stage64", "stagen",
            "return_", "conv_s8", "quantize", "scalar", "to_dtype"]
 
 
@@ -322,6 +345,18 @@ def dense(x, K, B=None, shp=None, plain=False):
     return y
 
 
+def matmul(x, y):
+    """``jnp.matmul`` with float32 accumulation, cast to x's dtype; a
+    QTensor operand dequantizes to the other's dtype first."""
+    if isinstance(y, QTensor):
+        y = y.dequant(x.dtype)
+    if isinstance(x, QTensor):
+        x = x.dequant(y.dtype)
+    odt = x.dtype
+    x, y = _promote(x, y)
+    return torch.matmul(x.float(), y.float()).to(odt)
+
+
 def maxpool(x, w=(2, 2), pads=(0, 0, 0, 0), strides=(2, 2), auto_pad=None,
             ceil_mode=0, impl=None):
     """MaxPool with reduce-window semantics (-inf seed for floats, the
@@ -338,8 +373,188 @@ def maxpool(x, w=(2, 2), pads=(0, 0, 0, 0), strides=(2, 2), auto_pad=None,
     return _window_max(x, kh, kw, sh, sw, (pt, pl, pb + eh, pr + ew), fill)
 
 
+def _window_sum(x, kh, kw, sh, sw, pads):
+    """Reduce-window sum over zero-padded input, taps added in row-major
+    window order in x's dtype."""
+    pt, pl, pb, pr = pads
+    xp = F.pad(x, (pl, pr, pt, pb))
+    ho = (xp.shape[2] - kh) // sh + 1
+    wo = (xp.shape[3] - kw) // sw + 1
+    out = None
+    for dy in range(kh):
+        for dx in range(kw):
+            v = xp[:, :, dy:dy + (ho - 1) * sh + 1:sh,
+                   dx:dx + (wo - 1) * sw + 1:sw]
+            out = v if out is None else out + v
+    return out
+
+
+def averagepool(x, w=(2, 2), pads=(0, 0, 0, 0), strides=(2, 2),
+                count_include_pad=1, auto_pad=None, ceil_mode=0):
+    """ONNX AveragePool as the reference computes it: a window sum over the
+    padded (and ceil-mode extended) input, divided by the window's overlap
+    with the padded extent (``count_include_pad``) or with the input; ceil
+    mode's virtual extension never enters the divisor."""
+    w = (2, 2) if w is None else w
+    (pt, pl, pb, pr), (eh, ew) = resolve_pool_pads(
+        x.shape[2:], w, strides, pads, auto_pad, ceil_mode)
+    kh, kw = (int(v) for v in w)
+    sh, sw = (2, 2) if strides is None else (int(strides[0]), int(strides[1]))
+    pad4 = (pt, pl, pb + eh, pr + ew)
+    s = _window_sum(x, kh, kw, sh, sw, pad4)
+    # the divisor is a constant: the compiled division is a float32
+    # multiply by its reciprocal
+    if count_include_pad and (eh, ew) == (0, 0):
+        return (s.float() * scalar(_recip(kh * kw), s)).to(x.dtype)
+    if count_include_pad:
+        ones = torch.ones((1, 1, x.shape[2] + pt + pb, x.shape[3] + pl + pr),
+                          device=x.device)
+        cpad = (0, 0, eh, ew)
+    else:
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), device=x.device)
+        cpad = pad4
+    recip = 1.0 / _window_sum(ones, kh, kw, sh, sw, cpad)
+    return (s.float() * recip).to(x.dtype)
+
+
 def global_average_pool(x):
     return x.mean(dim=(-2, -1), keepdim=True)
+
+
+def global_max_pool(x):
+    return x.amax(dim=(-2, -1), keepdim=True)
+
+
+# --------------------------------------------------------------------------
+# recurrent (ONNX LSTM and GRU, a Python loop over time steps)
+# --------------------------------------------------------------------------
+
+def _mm(a, b, dtype):
+    """a @ b.T accumulated in float32, cast to ``dtype``."""
+    return torch.matmul(a.float(), b.float().t()).to(dtype)
+
+
+def _seq_plan(L, d, sequence_lens, device):
+    """Per-direction ragged-sequence plan (``jax_ops._seq_plan``): state
+    frozen past each sequence's length, padded outputs zero, the reverse
+    direction reversed within each sequence's valid region.
+
+    Returns ``(reorder, mask)``: ``reorder(xs)`` maps the padded batch into
+    scan order (an involution: applied again it restores output order);
+    ``mask`` is the (L, N) validity of each step, or None."""
+    if sequence_lens is None:
+        if d == 1:
+            return (lambda a: a), None
+        return (lambda a: a.flip(0)), None
+    lens = _tensor(sequence_lens).to(device=device,
+                                     dtype=torch.long).reshape(-1)
+    steps = torch.arange(L, device=device)
+    mask = steps[:, None] < lens[None, :]                        # (L, N)
+    if d == 1:
+        return (lambda a: a), mask
+    idx = torch.clamp(lens[None, :] - 1 - steps[:, None], min=0)  # (L, N)
+
+    def reorder(a):
+        return torch.take_along_dim(a, idx[:, :, None], dim=0)
+    return reorder, mask
+
+
+def _rnn(xw, sequence_lens, direction, step, states0):
+    """Run ``step(di, x_t, states) -> states`` (states[0] is h) over each
+    direction's input projection ``xw[di]`` (L, N, G); returns (Y, the
+    final states per direction)."""
+    dirs = {"forward": [1], "reverse": [-1],
+            "bidirectional": [1, -1]}[direction]
+    L, dev = xw[0].shape[0], xw[0].device
+    ys_all, finals = [], []
+    for di, d in enumerate(dirs):
+        reorder, mask = _seq_plan(L, d, sequence_lens, dev)
+        xs, states, ys = reorder(xw[di]), states0(di), []
+        for t in range(L):
+            new = step(di, xs[t], states)
+            if mask is not None:      # freeze state past each length
+                m = mask[t][:, None]
+                new = tuple(torch.where(m, n, s) for n, s in zip(new, states))
+            states = new
+            ys.append(states[0])
+        ys = reorder(torch.stack(ys, 0))
+        if mask is not None:          # padded steps emit zeros (ONNX)
+            _, valid = _seq_plan(L, 1, sequence_lens, dev)
+            ys = torch.where(valid[:, :, None], ys,
+                             torch.zeros((), dtype=ys.dtype, device=dev))
+        ys_all.append(ys)
+        finals.append(states)
+    return torch.stack(ys_all, 1), finals
+
+
+def lstm(X, W, R, B=None, sequence_lens=None, initial_h=None, initial_c=None,
+         hidden_size=None, direction="forward"):
+    """ONNX LSTM (iofc gate order) as ``jax_ops.lstm`` computes it: the input
+    projection for the whole sequence first, then per step ``x_t + h @ R.T
+    + (Wb + Rb)``, each product accumulated in float32 and cast to X's
+    dtype.  Returns (Y, Y_h, Y_c)."""
+    N, H = X.shape[1], R.shape[-1]
+    xw = [torch.einsum("lnd,gd->lng", X.float(), W[di].float()).to(X.dtype)
+          for di in range(W.shape[0])]
+    bias = [(B[di][:4 * H] + B[di][4 * H:]) if B is not None else 0.0
+            for di in range(W.shape[0])]
+
+    def zeros():
+        return torch.zeros((N, H), dtype=X.dtype, device=X.device)
+
+    def states0(di):
+        return (initial_h[di] if initial_h is not None else zeros(),
+                initial_c[di] if initial_c is not None else zeros())
+
+    def step(di, t, states):
+        ht, ct = states
+        gates = t + _mm(ht, R[di], X.dtype) + bias[di]
+        i, o, f, c = gates.chunk(4, -1)
+        i, o, f = sigmoid(i), sigmoid(o), sigmoid(f)
+        cn = f * ct + i * torch.tanh(c)
+        return o * torch.tanh(cn), cn
+
+    Y, finals = _rnn(xw, sequence_lens, direction, step, states0)
+    return (Y, torch.stack([s[0] for s in finals], 0),
+            torch.stack([s[1] for s in finals], 0))
+
+
+def gru(X, W, R, B=None, sequence_lens=None, initial_h=None,
+        hidden_size=None, direction="forward", linear_before_reset=0):
+    """ONNX GRU (zrh gate order) as ``jax_ops.gru`` computes it: the input
+    projection plus Wb for the whole sequence first, then per step the
+    recurrent products (float32 accumulation, cast to X's dtype) plus Rb,
+    with ``linear_before_reset`` choosing where the reset gate applies.
+    Returns (Y, Y_h)."""
+    N, H = X.shape[1], R.shape[-1]
+
+    def bias(di, k):
+        if B is None:
+            return torch.zeros(3 * H, dtype=X.dtype, device=X.device)
+        return B[di][3 * H * k:3 * H * (k + 1)]
+
+    xw = [torch.einsum("lnd,gd->lng", X.float(), W[di].float()).to(X.dtype)
+          + bias(di, 0) for di in range(W.shape[0])]
+
+    def states0(di):
+        return (initial_h[di] if initial_h is not None else
+                torch.zeros((N, H), dtype=X.dtype, device=X.device),)
+
+    def step(di, t, states):
+        (ht,) = states
+        rz, rr, rh = R[di].chunk(3, 0)
+        rbz, rbr, rbh = bias(di, 1).chunk(3, 0)
+        xz, xr, xh = t.chunk(3, -1)
+        z = sigmoid(xz + _mm(ht, rz, X.dtype) + rbz)
+        rg = sigmoid(xr + _mm(ht, rr, X.dtype) + rbr)
+        if linear_before_reset:
+            h = torch.tanh(xh + rg * (_mm(ht, rh, X.dtype) + rbh))
+        else:
+            h = torch.tanh(xh + _mm(rg * ht, rh, X.dtype) + rbh)
+        return ((1 - z) * h + z * ht,)
+
+    Y, finals = _rnn(xw, sequence_lens, direction, step, states0)
+    return Y, torch.stack([s[0] for s in finals], 0)
 
 
 # --------------------------------------------------------------------------
@@ -420,8 +635,217 @@ def mul(a, b):
     return a * b
 
 
+def sub(a, b):
+    a, b = _promote(a, b)
+    return a - b
+
+
+def div(a, b):
+    """True division, integers included (``jnp.true_divide``)."""
+    a, b = _promote(a, b)
+    return a / b
+
+
+def power(x, p):
+    x, p = _promote(x, _tensor(p, x))
+    return torch.pow(x, p)
+
+
+def equal(a, b):
+    return torch.eq(*_promote(a, _tensor(b, a)))
+
+
+def greater(a, b):
+    return torch.gt(*_promote(a, _tensor(b, a)))
+
+
+def greater_or_equal(a, b):
+    return torch.ge(*_promote(a, _tensor(b, a)))
+
+
+def where(mask, a, b):
+    a, b = _promote(_tensor(a), _tensor(b, a))
+    return torch.where(_tensor(mask, a).bool(), a, b)
+
+
+def identity(x):
+    return x
+
+
+def minimum(*xs):
+    out = xs[0]
+    for x in xs[1:]:
+        out = torch.minimum(*_promote(out, x))
+    return out
+
+
+def maximum(*xs):
+    out = xs[0]
+    for x in xs[1:]:
+        out = torch.maximum(*_promote(out, x))
+    return out
+
+
+def sum_variadic(*xs):
+    out = xs[0]
+    for x in xs[1:]:
+        out = add(out, x)
+    return out
+
+
+def _recip(v):
+    """f32(1 / f32(v)): XLA compiles a division by a constant into a
+    multiply by its float32 reciprocal."""
+    return np.float32(1.0) / np.float32(v)
+
+
+def mean_variadic(*xs):
+    """The sum of the inputs times the float32 reciprocal of their count
+    (the compiled ``sum / len(xs)``), rounded to the sum's dtype."""
+    out = sum_variadic(*xs)
+    return (out.float() * scalar(_recip(len(xs)), out)).to(out.dtype)
+
+
+def absolute(x):
+    return torch.abs(x)
+
+
+def negative(x):
+    return -x
+
+
+def floor(x):
+    return torch.floor(x)
+
+
+def ceil(x):
+    return torch.ceil(x)
+
+
+def round_(x):
+    """Round half to even (ONNX Round, ``jnp.rint``)."""
+    return torch.round(x)
+
+
+def sign(x):
+    return torch.sign(x)
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
+def sqrt(x):
+    return torch.sqrt(x)
+
+
+def log(x):
+    return torch.log(x)
+
+
+def reciprocal(x):
+    """``1.0 / x``: integers divide into float32 as in JAX."""
+    if not x.is_floating_point():
+        x = x.float()
+    return scalar(1.0, x, x.dtype) / x
+
+
+def erf(x):
+    """Exact erf, or in ``modes`` "lut" mode the original planer's table,
+    indexed by the int16 truncation of ``lut_index_f`` (bit-equal to the
+    reference)."""
+    if _modes.get_erf_mode() == "lut":
+        idx = _modes.lut_index_f(x.float()).to(torch.int16).long()
+        lut = torch.as_tensor(_modes.ERF_LUT, device=x.device).to(x.dtype)
+        return lut[idx]
+    return torch.erf(x)
+
+
+def hardsigmoid(x, alpha=0.2, beta=0.5):
+    """clip(x * alpha + beta, 0, 1), alpha and beta rounded to x's dtype."""
+    y = x * scalar(alpha, x, x.dtype) + scalar(beta, x, x.dtype)
+    return torch.clamp(y, 0, 1).to(x.dtype)
+
+
+def _sum_exp(shifted, axis):
+    """sum(exp(shifted)) along ``axis`` as XLA compiles it for a 16-bit
+    float: the exponentials enter the float32 sum unrounded (excess
+    precision), the sum is rounded once."""
+    return torch.exp(shifted.float()).sum(axis, keepdim=True).to(
+        shifted.dtype)
+
+
+def softmax(x, axis=-1):
+    """``jax.nn.softmax``: exp(x - max) over the sum of the exponentials
+    along ``axis`` (``_sum_exp``)."""
+    shifted = x - x.amax(int(axis), keepdim=True)
+    return torch.exp(shifted) / _sum_exp(shifted, int(axis))
+
+
+def logsoftmax(x, axis=-1):
+    """``jax.nn.log_softmax``: (x - max) - log(sum(exp(x - max)))."""
+    shifted = x - x.amax(int(axis), keepdim=True)
+    return shifted - torch.log(_sum_exp(shifted, int(axis)))
+
+
+def prelu(x, slope):
+    slope = _tensor(slope, x)
+    if slope.ndim == 1 and x.ndim == 4:
+        slope = slope.reshape(1, -1, 1, 1)
+    x, slope = _promote(x, slope)
+    return torch.where(x > 0, x, x * slope)
+
+
+def elu(x, alpha=1.0):
+    """``jax.nn.elu``: where(x > 0, x, alpha * expm1(where(x > 0, 0, x)))."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    neg = torch.expm1(torch.where(x > 0, zero, x))
+    return torch.where(x > 0, x, scalar(alpha, x, x.dtype) * neg)
+
+
+def softplus(x):
+    """``jax.nn.softplus`` = ``logaddexp(x, 0)``: max(x, 0) + log1p(exp(-|x|)),
+    with no switch to x at large x (``F.softplus`` has one at 20)."""
+    y = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return torch.where(torch.isnan(x), x, y)
+
+
+def gelu(x, approximate="none"):
+    """``jax.nn.gelu``: exact as (0.5 * x) * erfc(-x * sqrt(0.5)); with
+    ``approximate="tanh"`` x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 *
+    x**3))); every constant rounded to x's dtype."""
+    if approximate == "tanh":
+        c = scalar(np.sqrt(2 / np.pi).astype(np.float32), x, x.dtype)
+        inner = x + scalar(0.044715, x, x.dtype) * (x * x * x)
+        cdf = scalar(0.5, x, x.dtype) * (
+            scalar(1.0, x, x.dtype) + torch.tanh(c * inner))
+        return x * cdf
+    # erfc's argument and result stay float32 between the rounded 0.5 * x
+    # and the final product, as XLA compiles it for a 16-bit float
+    sqrt_half = scalar(np.sqrt(0.5).astype(np.float32), x, x.dtype)
+    h = scalar(0.5, x, x.dtype) * x
+    return (h.float() * torch.erfc(-x.float() * sqrt_half.float())).to(
+        x.dtype)
+
+
 def batchnorm(x, K, B):
     return x * K + B
+
+
+def instance_normalization(x, s, bias, epsilon=1e-5):
+    """(x - mean) * rsqrt(var + eps) * s + bias over the spatial axes, the
+    variance biased (a mean of squared deviations), each step rounded to
+    x's dtype as the compiled reference rounds it."""
+    axes = tuple(range(2, x.ndim))
+    d = x - _mean(x, axes, True)
+    # the squares enter the float32 sum unrounded (XLA's excess precision)
+    var = _mean(torch.square(d.float()), axes, True).to(x.dtype)
+    shp = (1, -1) + (1,) * (x.ndim - 2)
+    # rsqrt as 1 / sqrt in float32, rounded once to x's dtype: torch's
+    # bf16 and CUDA rsqrt are approximations
+    v = (var + scalar(epsilon, var, var.dtype)).float()
+    inv = (1.0 / torch.sqrt(v)).to(x.dtype)
+    return d * inv * s.reshape(shp) + bias.reshape(shp)
 
 
 # --------------------------------------------------------------------------
@@ -430,7 +854,8 @@ def batchnorm(x, K, B):
 
 def _host_array(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
-        v = v.cpu().numpy()
+        v = v.cpu()
+        v = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
     return np.asarray(v)
 
 
@@ -541,6 +966,175 @@ def flatten(x, axis=1):
     return x.reshape(lead, -1)
 
 
+def split(x, split=None, axis=0):
+    """Pieces of the given sizes along ``axis`` (a tuple), past the last
+    piece dropped, as ``jnp.split`` at the cumulative offsets."""
+    if split is None:
+        raise ValueError("split sizes required")
+    sizes = _host_ints(split)
+    axis = int(axis) % x.ndim
+    return tuple(torch.split(x.narrow(axis, 0, sum(sizes)), sizes, axis))
+
+
+def tile(x, repeats):
+    return _tensor(x).tile(tuple(_host_ints(repeats)))
+
+
+def pad(x, pads, constant_value=0.0, mode="constant"):
+    """ONNX Pad: ``pads`` lists every axis's start pads, then its end pads;
+    ``mode`` "constant" (the value rounded to x's dtype), "reflect" or
+    "edge" (as ``np.pad``, built as an index gather per axis)."""
+    p = np.asarray(_host_ints(pads)).reshape(2, -1).T.tolist()
+    if mode == "constant":
+        v = 0.0 if constant_value is None else \
+            _host_array(constant_value).reshape(-1)[0].item()
+        flat = [n for lo, hi in reversed(p) for n in (lo, hi)]
+        return F.pad(x, flat, value=v)
+    np_mode = {"reflect": "reflect", "edge": "edge"}[mode]
+    for a, (lo, hi) in enumerate(p):
+        if lo or hi:
+            idx = np.pad(np.arange(x.shape[a]), (lo, hi), mode=np_mode)
+            x = torch.index_select(x, a, torch.as_tensor(idx,
+                                                         device=x.device))
+    return x
+
+
+def squeeze(x, axes=None):
+    if axes is None:
+        return x.squeeze()
+    return x.squeeze(tuple(a % x.ndim for a in _host_ints(axes)))
+
+
+def const(value=0, dtype="float32"):
+    """A host value (the reference's ``np.asarray(value, dtype)``)."""
+    return torch.as_tensor(np.asarray(value, dtype=dtype))
+
+
+def constant_of_shape(x, value=0, dtype="float32"):
+    """A host tensor of the shape ``x`` holds, filled with ``value``."""
+    return torch.full(tuple(_host_ints(x)), value, dtype=to_dtype(dtype))
+
+
+def scatternd(data, indices, updates):
+    """ONNX ScatterND: a copy of ``data`` with ``updates`` written at the
+    index tuples of ``indices``' last axis."""
+    data = _tensor(data)
+    indices = _tensor(indices, data).long()
+    r = indices.shape[-1]
+    idx = indices.reshape(-1, r)
+    upd = _tensor(updates, data).reshape((-1,) + tuple(data.shape[r:]))
+    out = data.clone()
+    out[tuple(idx[:, i] for i in range(r))] = upd.to(out.dtype)
+    return out
+
+
+def nonzero(x):
+    """(ndim, count) int64 indices of the nonzero elements, as
+    ``np.nonzero``.  Data-dependent: a program runs it past its cut."""
+    return torch.nonzero(_tensor(x)).t().contiguous()
+
+
+def topk(x, k, axis=-1, largest=1, sorted=1):
+    """The k largest (or smallest) values along ``axis`` with their int64
+    indices, ties ordered by index as ``lax.top_k`` orders them: a stable
+    sort (``torch.topk`` on CUDA leaves ties in no fixed order).  The
+    result is always sorted, as in the reference."""
+    k = _host_ints(k)[0]
+    axis = int(axis) % x.ndim
+    idx = torch.sort(x, dim=axis, descending=bool(largest),
+                     stable=True).indices.narrow(axis, 0, k)
+    return torch.gather(x, axis, idx), idx
+
+
+def space_to_depth(x, blocksize=2):
+    n, c, h, w = x.shape
+    b = int(blocksize)
+    x = x.reshape(n, c, h // b, b, w // b, b)
+    return x.permute(0, 3, 5, 1, 2, 4).reshape(n, c * b * b, h // b, w // b)
+
+
+def depth_to_space(x, blocksize=2, mode="DCR"):
+    n, c, h, w = x.shape
+    b = int(blocksize)
+    if mode == "DCR":
+        x = x.reshape(n, b, b, c // (b * b), h, w).permute(0, 3, 4, 1, 5, 2)
+    else:  # CRD
+        x = x.reshape(n, c // (b * b), b, b, h, w).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(n, c // (b * b), h * b, w * b)
+
+
+# --------------------------------------------------------------------------
+# reductions (bf16 and f16 sums, means and products in float32, as
+# jnp's reductions upcast them)
+# --------------------------------------------------------------------------
+
+def _axes(axes, ndim):
+    if axes is None:
+        return tuple(range(ndim))
+    return tuple(int(a) % ndim for a in _host_ints(axes))
+
+
+def _low(x):
+    return x.dtype in (torch.bfloat16, torch.float16)
+
+
+def _sum(x, axes, keepdim):
+    if _low(x):
+        return x.float().sum(axes, keepdim=keepdim).to(x.dtype)
+    return x.sum(axes, keepdim=keepdim)
+
+
+def _mean(x, axes, keepdim):
+    """``jnp.mean`` as compiled: the float32 sum (integers too) times the
+    float32 reciprocal of the count, cast back for a 16-bit float."""
+    y = x.float().sum(axes, keepdim=keepdim)
+    n = int(np.prod([x.shape[a] for a in axes], dtype=np.int64))
+    y = y * scalar(_recip(n), y)
+    return y.to(x.dtype) if x.is_floating_point() else y
+
+
+def reduce_sum(x, axes=None, keepdims=1):
+    return _sum(x, _axes(axes, x.ndim), bool(keepdims))
+
+
+def reduce_mean(x, axes=None, keepdims=1):
+    return _mean(x, _axes(axes, x.ndim), bool(keepdims))
+
+
+def reduce_max(x, axes=None, keepdims=1):
+    return x.amax(_axes(axes, x.ndim), keepdim=bool(keepdims))
+
+
+def reduce_min(x, axes=None, keepdims=1):
+    return x.amin(_axes(axes, x.ndim), keepdim=bool(keepdims))
+
+
+def reduce_prod(x, axes=None, keepdims=1):
+    y = x.float() if _low(x) else x
+    for a in sorted(_axes(axes, x.ndim), reverse=True):
+        y = y.prod(a, keepdim=bool(keepdims))
+    return y.to(x.dtype)
+
+
+def _arg_reduce(x, axis, keepdims, select_last_index, fn):
+    axis = int(axis) % x.ndim
+    if select_last_index:
+        out = x.shape[axis] - 1 - fn(x.flip(axis), axis)
+    else:
+        out = fn(x, axis)
+    return out.unsqueeze(axis) if keepdims else out
+
+
+def argmax(x, axis=0, keepdims=1, select_last_index=0):
+    """int64 index of the first maximum along ``axis`` (of the last with
+    ``select_last_index``, through a flip, as the reference)."""
+    return _arg_reduce(x, axis, keepdims, select_last_index, torch.argmax)
+
+
+def argmin(x, axis=0, keepdims=1, select_last_index=0):
+    return _arg_reduce(x, axis, keepdims, select_last_index, torch.argmin)
+
+
 def return_(*xs):
     return xs
 
@@ -601,6 +1195,24 @@ def upsample(x, k, mode="nearest", size=None):
     out_hw, sc = _rs.resize_shape(x.shape[-2:],
                                   scales=(float(k[-2]), float(k[-1])))
     return _resize_nchw(x, out_hw, sc, mode, "asymmetric", "floor")
+
+
+def resize_op(x, roi=None, k=None, size=None, mode="nearest",
+              coordinate_transformation_mode="half_pixel",
+              nearest_mode="round_prefer_floor"):
+    """ONNX Resize on the last two axes: scales ``k`` or sizes ``size`` (the
+    last two entries), ``roi`` ignored as in the reference, the spec's
+    coordinate transformations and nearest roundings (``ops/resize.py``)."""
+    scales = sizes = None
+    if k is not None and np.size(_host_array(k)) > 0:
+        kk = _host_array(k).astype(np.float64).ravel()
+        scales = (float(kk[-2]), float(kk[-1]))
+    if size is not None and np.size(_host_array(size)) > 0:
+        ss = _host_ints(size)
+        sizes = (ss[-2], ss[-1])
+    out_hw, sc = _rs.resize_shape(x.shape[-2:], scales=scales, sizes=sizes)
+    return _resize_nchw(x, out_hw, sc, mode, coordinate_transformation_mode,
+                        nearest_mode)
 
 
 # --------------------------------------------------------------------------

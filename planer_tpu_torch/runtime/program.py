@@ -11,9 +11,11 @@ keeps the tracer's decisions and runs the flow on the device:
    are folded on the host each call and never reach the device; the
    analysis is per application, not per name.
 2. **Cut point**: the first application that cannot run with static shapes
-   (a data-dependent op, a dynamic shape operand).  The JAX package runs
-   the rest on a numpy host tail; that tail is not ported yet, so such a
-   graph raises ``NotImplementedError``.
+   (a data-dependent op, a dynamic shape operand).  The flow from there on
+   (the *tail*) runs in the float32 ``Executor`` on the program's device,
+   as the JAX package runs it in its numpy executor: seeded with the
+   prefix's values (compute-dtype outputs as float32), the static values
+   and the weights.
 3. **Run**: dynamic applications call the registry's ``fn`` on device
    tensors.  Weights consumed dynamically are materialized once
    (quantization layer hook), cast to the compute dtype where they are
@@ -37,6 +39,7 @@ from ..ir import Graph
 from ..ops.qtypes import QTensor
 from ..ops.torch_ops import to_dtype
 from ..registry import get_op
+from .executor import Executor
 
 __all__ = ["Program", "analyze", "GraphPlan"]
 
@@ -125,6 +128,9 @@ def _store(env_tgt, env_other, edge, out):
         env_other.pop(edge.dst[0], None)
 
 
+_UNSET = object()
+
+
 def _to_device(v, device):
     if isinstance(v, QTensor):
         return QTensor(_to_device(v.q, device), _to_device(v.scale, device),
@@ -163,11 +169,7 @@ class Program:
         self.compute_dtype = compute_dtype
         self.op_overrides: dict[str, dict] = {}
         self.plan = analyze(graph)
-        if self.plan.cut < len(graph.flow):
-            raise NotImplementedError(
-                f"graph needs a host tail from flow edge {self.plan.cut} "
-                f"({self.plan.cut_reason}); the port does not run host "
-                f"tails yet")
+        self._tail: Executor | None = None
         self._layers = graph.layer_map()
         self._cdt = to_dtype(compute_dtype)
 
@@ -220,6 +222,23 @@ class Program:
                 and v.dtype == self._cdt:
             return v.float()
         return v
+
+    # ----------------------------------------------------------------- tail
+    def _run_tail(self, env, senv):
+        """Run flow[cut:] in the float32 executor on the program's device,
+        seeded with the static values, the weights and the prefix's
+        dynamic values (compute-dtype outputs as float32)."""
+        if self._tail is None:
+            self._tail = Executor(self.graph, self.weights,
+                                  device=self.device)
+        tenv = self._tail.initial_env()
+        # static values take precedence over the weights, as in the JAX
+        # package's tail (a name the flow rebinds holds the new value)
+        tenv.update({n: v for n, v in senv.items()
+                     if self._senv0.get(n, _UNSET) is not v})
+        tenv.update({n: self._cast_out(v) for n, v in env.items()})
+        return self._tail.run_range(tenv, self.plan.cut,
+                                    len(self.graph.flow))
 
     # ------------------------------------------------------------------ run
     @torch.inference_mode()
@@ -275,8 +294,12 @@ class Program:
             _store(env, senv, edge, spec.fn(*args, **kw))
 
         final = graph.flow[-1]
-        res = [self._cast_out(env[n] if n in env else _host(senv[n]))
-               for n in final.dst]
+        if self.plan.cut < len(graph.flow):
+            env = self._run_tail(env, senv)
+            res = [env[n] for n in final.dst]
+        else:
+            res = [self._cast_out(env[n] if n in env else _host(senv[n]))
+                   for n in final.dst]
         if final.dst_scalar:
             out = res[0]
             if isinstance(out, tuple) and len(out) == 1:

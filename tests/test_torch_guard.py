@@ -325,3 +325,57 @@ def test_gemm_kernel_failures_raise_instead_of_falling_back(monkeypatch):
     assert not tg.LAUNCHES
     src = open(tg.__file__).read()
     assert "try:" not in src and "except" not in src
+
+
+def test_frontend_imports_no_jax():
+    """The frontends (codec, ONNX converter, torch.fx lowering) run with the
+    JAX package, jax and ml_dtypes blocked from import."""
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+            "            raise ImportError('blocked: ' + name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            "import torch\n"
+            "from planer_tpu_torch.frontend import onnx_proto, onnx_convert\n"
+            "from planer_tpu_torch.frontend.torch2planer import fx_to_graph\n"
+            "g, blob = fx_to_graph(torch.nn.Sequential(torch.nn.Conv2d(3, 4,"
+            " 3), torch.nn.ReLU()))\n"
+            "m = onnx_proto.ModelProto.parse(onnx_proto.ModelProto(graph="
+            "onnx_proto.GraphProto(node=[onnx_proto.NodeProto(input=['x'], "
+            "output=['y'], name='r', op_type='Relu')], input=[onnx_proto."
+            "ValueInfoProto('x')], output=[onnx_proto.ValueInfoProto('y')]))"
+            ".dump())\n"
+            "onnx_convert.convert_model(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]\n"
+            "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_read_net_onnx_defaults_to_cuda(tmp_path):
+    """read_net("x.onnx") builds its net on the card unless asked for the
+    CPU, and raises where there is no card rather than falling back."""
+    import inspect
+    from planer_tpu_torch.frontend import onnx_proto as P
+    assert inspect.signature(pt.read_net).parameters["device"].default \
+        == "cuda"
+    model = P.ModelProto(graph=P.GraphProto(
+        node=[P.NodeProto(input=["x"], output=["y"], name="r",
+                          op_type="Relu")],
+        input=[P.ValueInfoProto("x", 1, [2])],
+        output=[P.ValueInfoProto("y", 1, [2])]))
+    p = str(tmp_path / "x.onnx")
+    P.save_model(model, p)
+    if torch.cuda.is_available():
+        assert pt.read_net(p).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pt.read_net(p)
+    net = pt.read_net(p, device="cpu")
+    assert net.device.type == "cpu"
+    np.testing.assert_array_equal(net(np.array([-1.0, 2.0], np.float32)),
+                                  [0.0, 2.0])

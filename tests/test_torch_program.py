@@ -7,7 +7,12 @@ package's, on options and record kinds the ResNet paths do not reach:
   * ``optimize.fuse_stagen(max_cout=)``: a stage wider than ``max_cout``
     stays unfused;
   * ``jax_ops._STACK_CONV``: off, a quantized C < 128 3x3 conv with at most
-    64 outputs takes dequant + float conv in place of the stacked s8 form.
+    64 outputs takes dequant + float conv in place of the stacked s8 form;
+  * the host tail: past a cut (a data-dependent op, a shape operand the
+    data decides) the program runs the rest of the flow in the float32
+    executor on its own device, seeded as the tracer seeds its numpy tail,
+    tuples stored into one-name and multi-name dsts as the tracer stores
+    them.
 """
 import numpy as np
 import pytest
@@ -159,3 +164,99 @@ def test_stack_conv_flag_matches_reference(stack, cdt, monkeypatch):
         # the dequant + float conv: the port's own float path, exactly
         want = tops.conv2d(tx, tk.dequant(tx.dtype), tb, **kw)
         torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------- host tail
+
+def _nonzero_flow(builder):
+    """tests/test_tracer.py's host-tail graph: relu, then nonzero (the cut)
+    and a shape read of its output."""
+    b = builder(["x"])
+    y = b.relu("x")
+    nz = b.nonzero(y)
+    b.shape(nz)
+    b.ret(nz)
+    return b.build()
+
+
+def test_host_tail_matches_tracer():
+    """nonzero cuts the graph after the relu (cut == 1, as the tracer
+    finds); the tail runs in the float32 executor and gives the JAX
+    TracedProgram's answer."""
+    jg, jw = _nonzero_flow(JBuilder)
+    tg, tw = _nonzero_flow(TBuilder)
+    assert tg.to_json() == jg.to_json()
+    jp, tp = j_analyze(jg), t_analyze(tg)
+    assert tp.cut == jp.cut == 1
+    assert tp.cut_reason == jp.cut_reason
+    assert _records(tp) == _records(jp)
+    x = np.array([[-1.0, 3.0], [2.0, -5.0]], dtype=np.float32)
+    ref = np.asarray(TracedProgram(jg, jw)(x))
+    out = Program(tg, tw, device="cpu")(torch.as_tensor(x))
+    assert out.dtype == torch.int64
+    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.array(np.nonzero(np.maximum(x, 0))))
+
+
+def _topk_flow(builder):
+    """x, v -> split x in two (a tuple into a two-name dst, in the prefix),
+    add the halves; topk by a k computed from v (argmax: a dynamic shape
+    operand, so the graph cuts there); the tail's topk once into two names
+    and once into one name holding the whole tuple; a sum of the values."""
+    b = builder(["x", "v"])
+    sp = b.weight("sp", np.array([2, 2], np.int64))
+    bias = b.weight("bias", np.full((1, 2, 1, 1), 0.5, np.float32))
+    a, c = b.split("x", sp, n_out=2, axis=1)
+    s = b.add(b.add(a, c), bias)
+    k = b.argmax("v", axis=0, keepdims=1)
+    vals, idx = b.topk(s, k, n_out=2, axis=-1)
+    both = b.topk(s, k, axis=2, largest=0)
+    total = b.reducesum(vals, axes=[-1], keepdims=0)
+    b.ret([vals, idx, both, total])
+    return b.build()
+
+
+def _flat(v):
+    if isinstance(v, (tuple, list)):
+        return [t for e in v for t in _flat(e)]
+    return [v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)]
+
+
+@pytest.mark.parametrize("cdt", [None, "bfloat16"])
+def test_dynamic_k_topk_cut_matches_tracer(cdt):
+    """A topk whose k the data decides cuts the graph; a tuple reaches a
+    multi-name dst in the prefix and in the tail, and a one-name dst holds
+    the whole tuple, as the tracer stores them.  The prefix's bf16 outputs
+    enter the tail as float32 in both packages."""
+    jg, jw = _topk_flow(JBuilder)
+    tg, tw = _topk_flow(TBuilder)
+    assert tg.to_json() == jg.to_json()
+    jp, tp = j_analyze(jg), t_analyze(tg)
+    assert tp.cut == jp.cut and tp.cut_reason == jp.cut_reason
+    assert "topk" in tp.cut_reason and tp.dyn_weights == jp.dyn_weights
+    rng = np.random.default_rng(5)
+    x = np.round(rng.standard_normal((2, 4, 3, 7)) * 4).astype(np.float32)
+    v = np.array([0.1, 0.9, 3.0, 0.2, 0.5], np.float32)     # k = 2
+    ref = TracedProgram(jg, jw, compute_dtype=cdt)(x, v)
+    out = Program(tg, tw, device="cpu", compute_dtype=cdt)(
+        torch.as_tensor(x), torch.as_tensor(v))
+    assert isinstance(out, tuple) and len(out) == 4
+    assert isinstance(out[2], tuple) and len(out[2]) == 2
+    got, want = _flat(out), _flat(ref)
+    assert len(got) == len(want) == 5
+    for a, r in zip(got, want):
+        assert a.shape == r.shape
+        np.testing.assert_array_equal(a, r)
+    assert got[0].shape == (2, 2, 3, 2) and got[0].dtype == np.float32
+
+
+def test_host_tail_runs_on_the_programs_device_and_reuses_its_executor():
+    tg, tw = _nonzero_flow(TBuilder)
+    prog = Program(tg, tw, device="cpu")
+    x = torch.tensor([[0.0, 1.0], [2.0, 0.0]])
+    prog(x)
+    tail = prog._tail
+    assert tail is not None and tail.device == prog.device
+    prog(x)
+    assert prog._tail is tail
