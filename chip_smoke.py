@@ -129,12 +129,30 @@
    index outputs equal, floats within the CPU tests' classes (bit-equal,
    4 ulps of the largest magnitude for transcendental ops, 1e-6 of it for
    sum-order ops, 1e-5 for the GEMM ones), each opcode's largest gap
-   printed.
+   printed;
+19. path 14: the main path's net served by a ``ServingEngine`` (batch
+   buckets 1-32, 5 ms delay, the 224 spatial bucket, warm-up) and its HTTP
+   front end: 8 closed-loop clients x 12 requests alternating 224 x 224 and
+   200 x 210 images, a burst of 32, 4 singles 20 ms apart, 16 POST /predict
+   from 4 threads, then /stats and /health.  Every answer against
+   ``Net.__call__`` at b1 on the same padded image (p99 <= 0.02, argmax
+   equal on decisive answers), the stats adding up to 148 requests, 1 stem
+   and 2 block launches per executed batch (warm-up included), no
+   fall-off, /health naming the card; a second engine at the 220 bucket
+   (off the kernels' geometry) shows its fall-off in ``stats()``; p50 and
+   p99 latency, occupancy, pad fraction and the burst's rate printed;
+20. path 15: the tools: ``profiler.cost_report`` at b64 beside the measured
+   b64 step, ``profiler.trace`` with the IR layer names in its events,
+   ``Net.timeit`` over the float32 executor, ``layer_quant_errors`` on a
+   float ResNet-18 at 224 with one corrupted layer (which must rank first)
+   and ``quantize_auto`` on a 16-class ResNet-18 at 224 (returns or raises
+   its RuntimeError).
 
 ``python3 chip_smoke.py --profile DIR`` adds a torch.profiler pass over the
 steps of the main path, of both ResNet-50 programs of path 2 and of paths
 3, 4, 6, 8, 9 and 10: the device's busy share and time by kernel, with the
-full tables written to ``DIR/profile_<program>_b<batch>.txt``.
+full tables written to ``DIR/profile_<program>_b<batch>.txt``, and keeps
+path 15's trace as ``DIR/trace.json``.
 
 Every failure raises and exits non-zero.  The line before the last is one
 JSON object with each kernel's numbers; the last line is
@@ -1679,14 +1697,245 @@ def op_library_path(torch, pt, card):
     return {"gaps": gaps, "opcodes": sorted(covered)}
 
 
+# --------------------------------------------------------------------------
+# paths 14 and 15: the main path served, and the tools
+# --------------------------------------------------------------------------
+
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)     # Config's serving defaults
+
+
+def post_npy(url, x):
+    """POST one example as .npy bytes; (status, answer)."""
+    import io
+    import urllib.request
+    buf = io.BytesIO()
+    np.save(buf, x)
+    req = urllib.request.Request(url, data=buf.getvalue(), method="POST")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        return resp.status, np.load(io.BytesIO(resp.read()))
+
+
+def get_json(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return resp.status, json.loads(resp.read())
+
+
+def serve_path(torch, net, st, synthetic_images, card):
+    """Path 14: the main path's net behind a ServingEngine (Config's
+    serving defaults, the 224 spatial bucket, warm-up) and its HTTP front
+    end.  Traffic: (a) 8 client threads x 12 requests in a closed loop,
+    alternating 224 x 224 and 200 x 210 images (edge-padded to 224); (b) a
+    burst of 32; (c) 4 singles 20 ms apart; (d) 16 POST /predict from 4
+    threads, then GET /stats and /health.  Every answer must resolve and
+    agree with ``Net.__call__`` on the same padded image at b1 (p99 of
+    max|d|/max|y| <= 0.02, margin-filtered argmax equal); the stats must
+    add up; stage64 must launch 1 stem and 2 blocks per executed batch,
+    warm-up included, and fall off nowhere; /health must report the card.
+    Then a second engine at the 220 bucket, off the kernel geometry, must
+    show its fall-off in stats()."""
+    from concurrent.futures import ThreadPoolExecutor
+    from planer_tpu_torch.runtime.http_server import PlanerHTTPServer
+    from planer_tpu_torch.runtime.serving import ServingEngine
+    sq = list(synthetic_images(48, (3, 224, 224), seed=400, batch=16))
+    rect = list(synthetic_images(48, (3, 200, 210), seed=401, batch=16))
+    sq, rect = np.concatenate(sq), np.concatenate(rect)
+    loop = [sq[i // 2] if i % 2 == 0 else rect[i // 2] for i in range(96)]
+    burst = np.concatenate(list(synthetic_images(32, (3, 224, 224),
+                                                 seed=402, batch=16)))
+    singles = next(synthetic_images(4, (3, 224, 224), seed=403, batch=4))
+    web = np.concatenate(list(synthetic_images(16, (3, 224, 224), seed=404,
+                                               batch=16)))
+    st.LAUNCHES.clear()
+    st.FALLOFF.clear()
+    served = []                                   # (request, answer)
+    t0 = time.perf_counter()
+    eng = ServingEngine(net, buckets=SERVE_BUCKETS, max_delay_ms=5,
+                        hw_buckets=(224,), warmup=True,
+                        example_shape=(3, 224, 224))
+    try:
+        warm_s = time.perf_counter() - t0
+
+        def client(t):                            # (a) closed loop
+            return [(x, eng.submit(x).result(timeout=120))
+                    for x in loop[t * 12:(t + 1) * 12]]
+        with ThreadPoolExecutor(8) as pool:
+            for got in pool.map(client, range(8)):
+                served += got
+        t1 = time.perf_counter()                  # (b) burst
+        futs = [eng.submit(x) for x in burst]
+        served += [(x, f.result(timeout=120)) for x, f in zip(burst, futs)]
+        burst_s = time.perf_counter() - t1
+        futs = []                                 # (c) singles
+        for x in singles:
+            futs.append(eng.submit(x))
+            time.sleep(0.02)
+        served += [(x, f.result(timeout=120)) for x, f in zip(singles, futs)]
+        with PlanerHTTPServer(eng, "127.0.0.1", 0) as srv:   # (d) HTTP
+            url = f"http://127.0.0.1:{srv.port}"
+            with ThreadPoolExecutor(4) as pool:
+                answers = list(pool.map(
+                    lambda x: post_npy(f"{url}/predict", x), web))
+            code_s, stats_http = get_json(f"{url}/stats")
+            code_h, health = get_json(f"{url}/health")
+        codes = [c for c, _ in answers] + [code_s, code_h]
+        if codes != [200] * len(codes):
+            raise SystemExit(f"path 14: HTTP status {codes}")
+        served += [(x, a) for x, (_, a) in zip(web, answers)]
+        stats = eng.stats()
+        launches, falloff = dict(st.LAUNCHES), dict(st.FALLOFF)
+    finally:
+        eng.close()
+    batches = stats["batches"] + len(SERVE_BUCKETS)       # warm-up batches
+    log(f"path 14 stats: {stats}")
+    if stats["requests"] != 148 or stats_http["requests"] != 148:
+        raise SystemExit(f"path 14: {stats['requests']} requests served "
+                         f"({stats_http['requests']} by /stats), want 148")
+    if not stats["batches"] < stats["requests"] \
+            or not 0 < stats["avg_occupancy"] <= 1 \
+            or len(eng.stats_data.latencies_ms) != 148:
+        raise SystemExit(f"path 14: stats do not add up: {stats}")
+    if "fused_stage_falloff" in stats or falloff:
+        raise SystemExit(f"path 14: stage64 fell off: {falloff}")
+    check_counts("path 14 stage64 launches (1 + 2 per executed batch, "
+                 f"{batches} batches with {len(SERVE_BUCKETS)} warm-up)",
+                 launches, {"stem_pool_requant": batches,
+                            "basic_block": batches,
+                            "basic_block_last": batches})
+    want = "cuda:0" if net.device.type == "cuda" else str(net.device)
+    if not health["healthy"] or not health["devices"].get(want, {}).get("ok"):
+        raise SystemExit(f"path 14: /health {health}")
+    log(f"path 14 /health: {health}")
+    if len(served) != 148:
+        raise SystemExit(f"path 14: {len(served)} answers for 148 requests")
+    ys, refs = [], []
+    for x, y in served:
+        pad = [(0, 0), (0, 224 - x.shape[1]), (0, 224 - x.shape[2])]
+        refs.append(net(np.pad(x, pad, mode="edge")[None])[0])
+        ys.append(y)
+    leg = agreement([(np.stack(ys), np.stack(refs))], "path 14 served "
+                    "answers vs Net.__call__ at b1 on the padded image", 0.02)
+
+    # the control: a bucket off the stage64 geometry falls off, visibly
+    st.FALLOFF.clear()
+    x220 = next(synthetic_images(1, (3, 220, 220), seed=405, batch=1))[0]
+    with ServingEngine(net, buckets=(1,), max_delay_ms=1,
+                       hw_buckets=(220,)) as eng220:
+        y = eng220.infer(x220)
+        stats220 = eng220.stats()
+    st.FALLOFF.clear()
+    if y.shape != (1000,) or stats220.get("fused_stage_falloff", {}).get(
+            "geometry", 0) < 1:
+        raise SystemExit(f"path 14: the 220 bucket's fall-off is not in "
+                         f"stats(): {stats220}")
+    log(f"path 14 control: the 220 bucket reports "
+        f"{stats220['fused_stage_falloff']}")
+    out = {"p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+           "occupancy": stats["avg_occupancy"],
+           "pad_fraction": stats["pad_fraction"],
+           "batches": stats["batches"], "warmup_s": warm_s,
+           "burst_img_s": len(burst) / burst_s, "leg": leg,
+           "launches": launches}
+    log(f"path 14: p50 {out['p50_ms']:.4f} ms, p99 {out['p99_ms']:.4f} ms "
+        f"(per request, 148 samples: submit "
+        f"to the future's result, the spatial probe included), average "
+        f"occupancy {out['occupancy']:.4f}, pad "
+        f"fraction {out['pad_fraction']:.4f}, {stats['batches']} batches for "
+        f"148 requests, burst of 32 at {out['burst_img_s']:.1f} img/s, "
+        f"warm-up {warm_s:.2f} s ({card})")
+    return out
+
+
+def tools_path(torch, pt, net, requests, step64_ms, synthetic_images, card,
+               profile_dir):
+    """Path 15: the profiling and quantization tools on the card.
+    (1) ``profiler.cost_report`` of the main path at b64 beside the
+    measured b64 step: flops > 0, ideal time below the step; (2)
+    ``profiler.trace`` around two main-path steps: the IR layer names in
+    the profiler's events (trace written under ``profile_dir`` with
+    ``--profile``); (3) ``Net.timeit`` over ``forward(engine="oracle")`` at
+    b8: conv timed; (4) ``layer_quant_errors`` on a float ResNet-18 at 224
+    with tests/test_accuracy.py's corrupted layer: it ranks first; (5)
+    ``quantize_auto`` on the JAX test's ResNet-18 (16 classes) at 224
+    with that test's settings: it returns or raises its RuntimeError, and
+    the script says which."""
+    import tempfile
+    from planer_tpu_torch.quant import layer_quant_errors, quantize_auto
+    from planer_tpu_torch.runtime import profiler
+    dev = net.device
+    x64 = torch.as_tensor(requests[64], device=dev)
+    rep = profiler.cost_report(net, x64, chip="h100")
+    log(f"path 15 cost_report b64: {rep}; measured b64 step "
+        f"{step64_ms:.4f} ms, ideal / step "
+        f"{1e3 * rep['ideal_time_s'] / step64_ms:.4f} ({card})")
+    if not rep["flops"] > 0 or not 1e3 * rep["ideal_time_s"] < step64_ms:
+        raise SystemExit(f"path 15: cost_report {rep} against a "
+                         f"{step64_ms} ms step")
+
+    x1 = torch.as_tensor(requests[1], device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiler.trace(profile_dir or tmp) as prof:
+            for _ in range(2):
+                net.program(x1)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    scopes = sorted(n for n in names if n.startswith("layer2.0."))
+    log(f"path 15 trace: {len(names)} event names, layer2.0 scopes {scopes}")
+    if "layer2.0.conv1" not in names:
+        raise SystemExit("path 15: no IR layer name in the trace")
+
+    net.timeit("start")
+    net.forward(requests[8], engine="oracle")
+    timer = dict(net.timer)
+    net.timeit("end")
+    log(f"path 15 timeit b8 (float32 executor, device time per op type, "
+        f"s): {timer}")
+    if not timer.get("conv", 0) > 0:
+        raise SystemExit(f"path 15: no conv time in {timer}")
+
+    fnet = pt.models.resnet18(seed=SEED, device=dev)
+    fnet.optimize()
+    wname = "layer2.0.conv1.w"
+    w = fnet.weights[fnet.graph.init_index()[wname]]
+    w[0, 0, 0, 0], w[0, 0, 0, 2] = 60.0, -60.0
+    fnet._invalidate()
+    cal = list(synthetic_images(4, (3, 224, 224), seed=7, batch=2))
+    errs = layer_quant_errors(fnet, cal, mode="int8")
+    top = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+    log(f"path 15 layer_quant_errors: {len(errs)} convs, top {top}")
+    if top[0][0] != wname:
+        raise SystemExit(f"path 15: {wname} does not rank first: {top}")
+    del fnet
+
+    # the JAX test's 16-class head: with 1000 random classes no synthetic
+    # image has a top-1 margin of 0.05, and top1_agreement refuses to score
+    qnet = pt.models.resnet18(num_classes=16, seed=SEED, device=dev)
+    qnet.optimize()
+    t0 = time.perf_counter()
+    try:
+        rep_q = quantize_auto(qnet, mode="int8", budget_top1=0.99,
+                              budget_rel=0.05, eval_n=64,
+                              eval_shape=(3, 224, 224), min_margin=0.05,
+                              max_fallbacks=2)
+        outcome = (f"returned: top1 {rep_q['top1']:.4f}, max_rel "
+                   f"{rep_q['delta']['max_rel']:.6g}, skip {rep_q['skip']}")
+    except RuntimeError as e:
+        outcome = f"raised its RuntimeError: {e}"
+    log(f"path 15 quantize_auto at 224: {outcome} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"cost_report": rep, "trace_scopes": len(scopes),
+            "timer": timer, "top_layer": top[0], "quantize_auto": outcome}
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / "
                                  "CUDA port on one NVIDIA card.")
     ap.add_argument("--profile", metavar="DIR",
                     help="add a torch.profiler pass over the steps of the "
                     "main path, of both ResNet-50 programs of path 2 and of "
-                    "paths 3, 4, 6, 8, 9 and 10, and write their tables to "
-                    "DIR")
+                    "paths 3, 4, 6, 8, 9 and 10, and write their tables "
+                    "(and path 15's trace) to DIR")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1736,7 +1985,7 @@ def main():
     imgs = list(synthetic_images(32, (3, 224, 224), seed=29, batch=16))
     pairs = [(net(x), net(x, engine="oracle")) for x in imgs]
     leg3 = agreement(pairs, "quantized program vs float32 executor", 0.05)
-    step_times(torch, net, requests, "main path", card)
+    steps_main = step_times(torch, net, requests, "main path", card)
     if args.profile:
         profile_steps(torch, net.program, requests, card, args.profile)
 
@@ -1959,6 +2208,11 @@ def main():
                                   [st.LAUNCHES, st.FALLOFF], card, work)
     p13 = op_library_path(torch, pt, card)
 
+    # ----------------------- paths 14-15: the main path served, the tools
+    p14 = serve_path(torch, net, st, synthetic_images, card)
+    p15 = tools_path(torch, pt, net, requests, steps_main[64],
+                     synthetic_images, card, args.profile)
+
     # ---------------------------------------------------- kernel table
     n = 64
     stem_bytes = n * 3 * 224 * 224 + 64 * 147 + 64 * 4 * 4 + n * 64 * 56 * 56
@@ -2006,6 +2260,7 @@ def main():
             row["launches"] = launches[name]
             row["launches_path11"] = p11["launches"][name]
             row["launches_path12"] = p12["launches"][name]
+            row["launches_path14"] = p14["launches"][name]
         rows.append(row)
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
@@ -2071,6 +2326,13 @@ def main():
         f"{p12['import']:.3g}, executor p99 {p12['leg3'][0]:.6g}, steps "
         f"{p12['steps']} ms; path 13: {len(p13['opcodes'])} opcodes on the "
         f"card within their bounds (printed, no claim)")
+    log(f"path 14 (served): p50 {p14['p50_ms']:.4f} ms, p99 "
+        f"{p14['p99_ms']:.4f} ms, occupancy {p14['occupancy']:.4f}, pad "
+        f"fraction {p14['pad_fraction']:.4f}, burst {p14['burst_img_s']:.1f} "
+        f"img/s, answers p99 {p14['leg'][0]:.6g}; path 15: ideal "
+        f"{1e3 * p15['cost_report']['ideal_time_s']:.4f} ms of a "
+        f"{steps_main[64]:.4f} ms b64 step, quantize_auto "
+        f"{p15['quantize_auto']} (printed, no claim)")
     log(f"legs: plain-stage p99 {leg1[0]:.6g}; executor p99 {leg3[0]:.6g}; "
         f"path 2 plain p99 {leg1_50[0]:.6g}, fuse='all' executor gap p99 "
         f"{gap50[0]:.6g}, default-fuse executor p99 {leg3_50[0]:.6g}; "

@@ -15,20 +15,71 @@ fused body stages, and the weight-only GEMM run as hand-written ``sm_90a``
 kernels; NMS is native C++ on the host (``native``).  Entry points run on
 the card (``device="cuda"``) unless the caller passes ``device="cpu"``.
 
+Serving: ``ServingEngine`` (continuous batching into batch and spatial
+buckets) and ``runtime.http_server`` (``/predict``, ``/stats``,
+``/health``); profiling: ``runtime.profiler`` (``cost_report``, ``trace``)
+and ``Net.timeit``; ``quant.quantize_auto`` quantizes with per-layer
+fallback until an accuracy budget holds.
+
 The package imports torch and numpy only, never jax, ml_dtypes or
 planer_tpu.
 """
 from .ir import Graph, Layer, FlowEdge, pack_weights, unpack_weights
+from .registry import OPS, get_op
 from .io import read_net, InferenceSession, save_pla, load_graph, onnx2pla
 from .runtime.net import Net
-from .quant import calibrate_act_scales, quantize_net
+from .runtime.executor import Executor
+from .runtime.program import Program, analyze
+from .runtime.serving import ServingEngine
+from .runtime import profiler
+from .quant import (calibrate_act_scales, quantize_net, layer_quant_errors,
+                    quantize_auto)
 from .convert import net_from_arrays
 from . import frontend, models
+from .models.builder import GraphBuilder
 from .frontend.torch2planer import torch2planer
-from .utils import tile
+from .utils.config import Config, get_config, set_config
+from .utils.tile import tile, grid_slice, make_slice
+from .utils.image import resize, mapcoord, uniform_filter, gaussian_filter
+from .utils.zoo import (Model, load, download, downloads, source,
+                        list_source, get_source)
 
 __all__ = ["Graph", "Layer", "FlowEdge", "pack_weights", "unpack_weights",
-           "read_net", "InferenceSession", "save_pla", "load_graph",
-           "onnx2pla", "torch2planer", "frontend", "Net",
-           "calibrate_act_scales", "quantize_net", "net_from_arrays",
-           "models", "tile"]
+           "OPS", "get_op", "read_net", "InferenceSession", "save_pla",
+           "load_graph", "onnx2pla", "torch2planer", "frontend", "Net",
+           "Executor", "Program", "analyze", "ServingEngine", "profiler",
+           "calibrate_act_scales", "quantize_net", "layer_quant_errors",
+           "quantize_auto", "net_from_arrays", "models", "GraphBuilder",
+           "Config", "get_config", "set_config", "tile", "grid_slice",
+           "make_slice", "resize", "mapcoord", "uniform_filter",
+           "gaussian_filter", "Model", "load", "download", "downloads",
+           "source", "list_source", "get_source", "core", "asnumpy",
+           "asarray"]
+
+
+def core(obj=None, silent: bool = True):
+    """The reference's backend switch, kept for its callers: the port has
+    one backend, so this does nothing and returns ``torch``."""
+    import torch
+    if not silent:
+        print("planer_tpu_torch: single torch backend; core() is a no-op")
+    return torch
+
+
+def asnumpy(arr, **kw):
+    """A numpy array of ``arr`` (a torch tensor on any device, or an
+    array-like)."""
+    import numpy as np
+    import torch
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu().numpy()
+    return np.asarray(arr, **kw)
+
+
+def asarray(arr, device="cuda", **kw):
+    """A torch tensor of ``arr`` (``torch.as_tensor``) on the CUDA card, or
+    on ``device`` where the caller names one (``device="cpu"``).  Raises
+    where no card is available and none was named."""
+    import torch
+    from .device import resolve_device
+    return torch.as_tensor(arr, device=resolve_device(device), **kw)

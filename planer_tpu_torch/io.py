@@ -14,6 +14,7 @@ import zipfile
 import numpy as np
 
 from .ir import Graph, pack_weights
+from .ops import fp8
 from .runtime.net import Net
 
 __all__ = ["read_net", "InferenceSession", "save_pla", "load_graph",
@@ -54,7 +55,15 @@ InferenceSession = read_net
 
 
 def save_pla(path: str, graph: Graph, weights: list[np.ndarray]):
-    """Write a .pla package (zip of json + npy blob)."""
+    """Write a .pla package (zip of json + npy blob).  Each weight must
+    have its init's dtype: a halved net's weights do not, and are refused."""
+    for (name, _, dtype), w in zip(graph.inits, weights):
+        have = str(w.dtype).replace("torch.", "")
+        if have != ("uint8" if fp8.is_fp8(dtype) else str(dtype)):
+            raise ValueError(
+                f"save_pla: weight {name!r} is {have} but its init says "
+                f"{dtype} (a halved net has no .pla form; save it before "
+                f"half())")
     if path.endswith(".pla"):
         path = path[:-4]
     base = os.path.split(path)[1]

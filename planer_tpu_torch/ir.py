@@ -36,6 +36,7 @@ import json
 from typing import Any
 
 import numpy as np
+import torch
 
 from .ops import fp8
 
@@ -206,11 +207,15 @@ class Graph:
 def pack_weights(arrays: list[np.ndarray]) -> np.ndarray:
     """Concatenate weight arrays into one contiguous uint8 blob.
 
-    Wire-compatible with reference io.py:286.
+    Wire-compatible with reference io.py:286.  A torch tensor (a halved
+    net's bfloat16 weights) gives its own bytes.
     """
     if not arrays:
         return np.zeros(0, dtype=np.uint8)
-    parts = [np.ascontiguousarray(a).view(np.uint8).ravel() for a in arrays]
+    parts = [a.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+             .numpy() if isinstance(a, torch.Tensor)
+             else np.ascontiguousarray(a).view(np.uint8).ravel()
+             for a in arrays]
     return np.concatenate(parts)
 
 

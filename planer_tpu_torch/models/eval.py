@@ -1,7 +1,7 @@
 """Accuracy-parity evaluation harness: a copy of
-``planer_tpu/models/eval.py`` (numpy only; ``load_real_weights`` waits for
-the port's ``utils/zoo``), so both packages calibrate and evaluate on the
-same arrays from the same seed and score agreement the same way.
+``planer_tpu/models/eval.py`` (numpy only), so both packages calibrate and
+evaluate on the same arrays from the same seed and score agreement the
+same way.
 
   * :func:`synthetic_images` — deterministic structured inputs;
   * :func:`top1_agreement` — fraction of inputs where argmax matches between
@@ -10,7 +10,9 @@ same arrays from the same seed and score agreement the same way.
   * :func:`detection_agreement` — IoU-matched agreement between two nets'
     YOLO detections (a mAP-delta proxy);
   * :func:`structure_weights` — trained-checkpoint-like weight statistics
-    for an untrained builder net.
+    for an untrained builder net;
+  * :func:`load_real_weights` — a checkpoint from the zoo cache dir, for
+    ``Net.load_state``.
 
 A net is anything called on a numpy batch that returns numpy outputs: the
 port's ``Net`` (on the card by default) or the JAX package's.
@@ -20,7 +22,28 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["top1_agreement", "output_delta", "detection_agreement",
-           "synthetic_images", "structure_weights"]
+           "synthetic_images", "load_real_weights", "structure_weights"]
+
+
+def load_real_weights(name: str, cache_dir: str | None = None):
+    """The name -> array dict of a checkpoint in the zoo cache dir
+    (``cache_dir``, else ``$PLANER_ZOO_DIR``, else ``~/.planer_zoo``):
+    ``<name>.npz`` (init name -> array), or a ``<name>.pla`` /
+    ``.json`` + ``.npy`` model, whose weights are read without building a
+    net.  Returns None when no checkpoint is there."""
+    import os
+    d = cache_dir or os.environ.get("PLANER_ZOO_DIR") \
+        or os.path.expanduser("~/.planer_zoo")
+    base = os.path.join(d, name)
+    if os.path.exists(base + ".npz"):
+        z = np.load(base + ".npz")
+        return {k: z[k] for k in z.files}
+    if os.path.exists(base + ".pla") or os.path.exists(base + ".json"):
+        from ..io import load_graph
+        from ..ir import unpack_weights
+        graph, blob = load_graph(base)
+        return dict(zip(graph.init_names(), unpack_weights(graph, blob)))
+    return None
 
 
 def synthetic_images(n: int, shape=(3, 224, 224), seed: int = 0,

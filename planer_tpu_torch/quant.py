@@ -10,11 +10,15 @@ port's counterpart of ``planer_tpu/quant.py``.
     ``graph.quant`` (the same IR and bytes as the JAX package's pass; fp8
     payloads live on the host as uint8 bit patterns, ``ops.fp8``);
   * :func:`make_quant_program` builds a :class:`Program` whose params carry
-    the int8 or fp8 payloads and scales as QTensors.
+    the int8 or fp8 payloads and scales as QTensors;
+  * :func:`layer_quant_errors` ranks the convs by the error their weight
+    quantization alone causes, and :func:`quantize_auto` quantizes with
+    per-layer fallback until an accuracy budget holds.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .ir import Graph
 from .ops import fp8
@@ -22,7 +26,8 @@ from .ops.qtypes import QTensor
 from .runtime.program import Program
 
 __all__ = ["quantize_net", "dequant_weights", "make_quant_program",
-           "calibrate_act_scales", "QTensor"]
+           "calibrate_act_scales", "layer_quant_errors", "quantize_auto",
+           "QTensor"]
 
 # ops with a quantizable weight at positional input 1, and the output-channel
 # axis of that weight
@@ -116,6 +121,136 @@ def calibrate_act_scales(net, batches, percentile: float = 99.99) -> dict:
     graph.meta["act_scales"] = scales
     net._invalidate()
     return scales
+
+
+def layer_quant_errors(net, batches, mode: str = "int8",
+                       activations: str | None = None,
+                       percentile: float = 99.9) -> dict:
+    """Per-layer quantization-error attribution on calibration data.
+
+    Runs the float32 executor once per batch; for every conv with a
+    float32 initializer weight, recomputes that conv IN ISOLATION with
+    simulated quantization (per-output-channel weights rounded at
+    absmax / qmax, qmax 127 for int8 and 448 for fp8, as in the reference;
+    per-tensor activation quantization at the ``percentile`` of |x| where
+    ``activations`` is set and the conv would take the s8 path) and records
+    max|yq - y| / max|y|.  The recomputation is float32 torch on the net's
+    device, with TF32 off as in the executor.  Returns {weight_name:
+    rel_err}, the ranking :func:`quantize_auto` falls back by.
+    """
+    from .ops import torch_ops as tops
+    if mode not in _MODES:
+        raise NotImplementedError(f"quantize mode {mode!r} is not ported")
+    qmax = _MODES[mode][1]
+    graph: Graph = net.graph
+    inits = set(graph.init_names())
+    idx = graph.init_index()
+    errs: dict[str, float] = {}
+
+    def sim_quant_w(w):
+        red = tuple(range(1, w.ndim))
+        absmax = w.abs().amax(dim=red, keepdim=True).clamp_min(1e-12)
+        scale = absmax / qmax
+        return torch.clamp(torch.round(w / scale), -qmax, qmax) * scale
+
+    def cb(i, lname, layer, args, out):
+        if layer.op != "conv":
+            return
+        src = graph.flow[i].src
+        if len(src) < 2 or src[1] not in inits:
+            return
+        wname = src[1]
+        w = net.weights[idx[wname]]
+        if not isinstance(w, np.ndarray) or w.dtype != np.float32:
+            return
+        x = args[0].float()
+        xq = x
+        if activations and x.ndim == 4 and x.shape[1] >= 128 \
+                and int(layer.kwargs.get("group", 1)) == 1:
+            a = np.abs(x.cpu().numpy())
+            sx = max(float(np.percentile(a, percentile)), 1e-6) / 127.0
+            xq = torch.clamp(torch.round(x / sx), -127, 127) * sx
+        b = args[2] if len(args) > 2 else None
+        wq = sim_quant_w(torch.as_tensor(w, device=x.device))
+        yq = tops.conv2d(xq, wq, b, **layer.kwargs)
+        y = out.float()
+        rel = float((yq - y).abs().max() / (y.abs().max() + 1e-9))
+        errs[wname] = max(errs.get(wname, 0.0), rel)
+
+    oracle = net.oracle
+    for x in batches:
+        oracle.run(*(x if isinstance(x, tuple) else (x,)), trace_cb=cb)
+    return errs
+
+
+def quantize_auto(net, mode: str = "int8", activations: str | None = None,
+                  budget_top1: float = 0.995, budget_rel: float = 0.05,
+                  eval_n: int = 64, eval_shape=(3, 224, 224),
+                  calib_batches: int = 4, seed: int = 11,
+                  max_fallbacks: int = 8, min_margin: float = 0.0,
+                  verbose: bool = False):
+    """Quantize with automatic per-layer fallback until the accuracy budget
+    holds: the reference's trial loop.
+
+    Quantizes every eligible weight, measures top-1 agreement and the
+    relative output delta against the float32 net on structured synthetic
+    inputs, and while the budget is violated returns the worst layer left
+    (ranked by :func:`layer_quant_errors`) to full precision and measures
+    again.  Raises ``RuntimeError`` when ``max_fallbacks`` fallbacks do not
+    meet it; never returns an over-budget net.  On success the found
+    configuration is applied to ``net`` in place.
+
+    Returns {"skip": [...], "top1": float, "delta": {...},
+    "layer_errors": {...}}.
+    """
+    import copy
+
+    from .models import eval as _ev
+    from .runtime.net import Net
+
+    ref = Net(copy.deepcopy(net.graph), [w.copy() for w in net.weights],
+              device=net.device)
+
+    cal = list(_ev.synthetic_images(calib_batches * 2, eval_shape, seed=seed,
+                                    batch=2))
+    errs = layer_quant_errors(net, cal, mode=mode, activations=activations)
+    if activations == "static":
+        calibrate_act_scales(net, cal)
+    order = sorted(errs, key=errs.get, reverse=True)
+
+    base_graph = copy.deepcopy(net.graph)
+    base_weights = [w.copy() for w in net.weights]
+    skip: list[str] = []
+    report = {}
+    for trial in range(max_fallbacks + 1):
+        cand = Net(copy.deepcopy(base_graph), [w.copy() for w in base_weights],
+                   compute_dtype=net.compute_dtype, device=net.device)
+        quantize_net(cand, mode=mode, skip=tuple(skip),
+                     activations=activations)
+        top1 = _ev.top1_agreement(ref, cand, n=eval_n, shape=eval_shape,
+                                  seed=seed + 1, min_margin=min_margin)
+        delta = _ev.output_delta(ref, cand, n=min(eval_n, 16),
+                                 shape=eval_shape, seed=seed + 2)
+        report = {"skip": list(skip), "top1": top1, "delta": delta,
+                  "layer_errors": errs}
+        if verbose:
+            print(f"quantize_auto trial {trial}: top1={top1:.4f} "
+                  f"max_rel={delta['max_rel']:.4f} skip={skip}")
+        if top1 >= budget_top1 and delta["max_rel"] <= budget_rel:
+            break
+        nxt = [w for w in order if w not in skip]
+        if not nxt:
+            break
+        skip.append(nxt[0])
+    if report["top1"] < budget_top1 or report["delta"]["max_rel"] > budget_rel:
+        raise RuntimeError(
+            f"quantize_auto could not meet budget (top1 {report['top1']:.4f}"
+            f" < {budget_top1} or delta {report['delta']['max_rel']:.4f} > "
+            f"{budget_rel}) after {len(skip)} fallbacks")
+
+    quantize_net(net, mode=mode, skip=tuple(skip), activations=activations)
+    net._invalidate()
+    return report
 
 
 def quantize_net(net, mode: str = "int8", skip: tuple = (),

@@ -8,12 +8,19 @@ on dequantized weights, quantization annotations ignored.  It is the
 correctness oracle of the quantized program and the engine of calibration.
 
 On a CUDA device it turns TF32 off for both convolutions and matmuls, so
-float32 means float32 (cuDNN convolutions default to TF32).  Host values
+float32 means float32 (cuDNN convolutions default to TF32).
+
+With ``timed`` set (``Net.timeit("start")`` sets it), ``timer[op]``
+accumulates the seconds each opcode took, the reference's per-op-type
+profile.  On a CUDA device the device is drained before each op and after
+it, so the dict holds each op's device time and not the time its launch
+took the host; the untimed loop neither synchronises nor reads a clock.  Host values
 that shape ops return (``shape``'s numpy array, ``range``'s host tensor)
 move to the device where the next op takes them.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -42,6 +49,8 @@ class Executor:
         self.weights = [_as_tensor(w, self.device) for w in weights]
         self.life = graph.liveness()
         self._layers = graph.layer_map()
+        self.timed = False
+        self.timer: dict[str, float] = {}
 
     # ------------------------------------------------------------------ API
     @torch.no_grad()
@@ -92,7 +101,10 @@ class Executor:
                     for s in set(edge.src):
                         if s in env and self.life.get(s, -1) <= i:
                             del env[s]
-                out = spec.oracle_fn(*args, **layer.kwargs)
+                if self.timed:
+                    out = self._timed(layer, spec.oracle_fn, args)
+                else:
+                    out = spec.oracle_fn(*args, **layer.kwargs)
                 if debug:
                     ish = [getattr(a, "shape", a) for a in args]
                     osh = (tuple(getattr(o, "shape", o) for o in out)
@@ -109,3 +121,15 @@ class Executor:
                     for name, v in zip(edge.dst, out):
                         env[name] = v
         return env
+
+    def _timed(self, layer, fn, args):
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        out = fn(*args, **layer.kwargs)
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        dt = time.perf_counter() - t0
+        self.timer[layer.op] = self.timer.get(layer.op, 0.0) + dt
+        return out

@@ -1,6 +1,10 @@
 """``Net`` — the user-facing graph container of the port (the counterpart of
 ``planer_tpu/runtime/net.py``): build or load a graph, optimize, quantize,
 run.  A Net lives on one device, CUDA unless the caller asks for the CPU.
+
+Its weights are host arrays: numpy, except the float32 weights that
+``half("bfloat16")`` rounds, which are CPU torch bfloat16 tensors (numpy
+has no bfloat16 without ``ml_dtypes``).
 """
 from __future__ import annotations
 
@@ -8,7 +12,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ir import Graph, unpack_weights
+from ..ir import FlowEdge, Graph, Layer, unpack_weights
+from ..ops import fp8
 from .executor import Executor
 from .program import Program
 
@@ -33,11 +38,68 @@ class Net:
         self.compute_dtype = compute_dtype   # e.g. 'bfloat16'
         self._program: Program | None = None
         self._oracle: Executor | None = None
+        self._timed = False                  # carried to a rebuilt oracle
 
     # ------------------------------------------------------------- building
+    def load_json(self, inputs, inits, body, flow, debug: bool = False):
+        """Build the graph from the reference's JSON parts, with zero
+        weights until ``load_weights``."""
+        g = Graph(
+            inputs=list(inputs),
+            inits=[(i[0], tuple(i[1]), i[2]) for i in inits],
+            layers=[Layer.from_json(list(b)) for b in body],
+            flow=[FlowEdge.from_json(list(f)) for f in flow],
+        )
+        if debug:
+            for b in body:
+                print(b)
+        g.validate()
+        self.graph = g
+        self.weights = [np.zeros(s, np.uint8 if fp8.is_fp8(d) else d)
+                        for _, s, d in g.inits]
+        self._invalidate()
+        return self
+
     def load_weights(self, blob):
         """Split the contiguous uint8 blob into per-init arrays."""
         self.weights = unpack_weights(self.graph, np.asarray(blob))
+        self._invalidate()
+
+    def load_state(self, state: dict, strict: bool = False) -> int:
+        """Load weights (e.g. pretrained, ``models.eval.load_real_weights``)
+        from a name -> array dict, before ``quantize()``: each entry must
+        have its float32 init's shape.  Returns the number loaded; unknown
+        names are skipped, or raise ``KeyError`` when ``strict``."""
+        idx = self.graph.init_index()
+        n = 0
+        for name, arr in state.items():
+            i = idx.get(name)
+            if i is None:
+                if strict:
+                    raise KeyError(f"unknown init {name!r}")
+                continue
+            arr = np.asarray(arr)
+            want = self.weights[i]
+            if tuple(arr.shape) != tuple(want.shape):
+                raise ValueError(
+                    f"{name}: shape {arr.shape} != init {tuple(want.shape)}")
+            self.weights[i] = np.ascontiguousarray(arr, dtype=want.dtype)
+            n += 1
+        self._invalidate()
+        return n
+
+    # ------------------------------------------------------------ precision
+    def half(self, dtype: str = "float16"):
+        """Cast the float32 weights down to ``dtype``.  Every op casts a
+        weight to its input's dtype, so a halved net computes in float32 on
+        the rounded weights, as the JAX package's does.  bfloat16 weights
+        are CPU torch tensors; ``pack_weights`` takes them, ``save_pla``
+        refuses a halved net (its init table still says float32)."""
+        for i, w in enumerate(self.weights):
+            if isinstance(w, np.ndarray) and w.dtype == np.float32:
+                self.weights[i] = (torch.as_tensor(w).to(torch.bfloat16)
+                                   if str(dtype) == "bfloat16"
+                                   else w.astype(dtype))
         self._invalidate()
 
     # ------------------------------------------------------------ transforms
@@ -120,12 +182,14 @@ class Net:
                 from ..quant import dequant_weights
                 ws = dequant_weights(self.graph, ws)
             self._oracle = Executor(self.graph, ws, device=self.device)
+            self._oracle.timed = self._timed
         return self._oracle
 
     def forward(self, *x, debug: bool = False, engine: str | None = None):
         """Run the program (device tensors out), or the float32 executor
         with ``engine='oracle'`` (``'numpy'``, the JAX package's name for
-        its oracle, is accepted too)."""
+        its oracle, is accepted too), which fills ``timer`` after
+        ``timeit("start")``."""
         if debug or engine in ("oracle", "numpy"):
             return self.oracle.run(*x, debug=debug)
         if engine is not None:
@@ -146,6 +210,54 @@ class Net:
         """onnxruntime-style entry point."""
         rst = self(input, **kw)
         return rst if isinstance(rst, tuple) else (rst,)
+
+    # ----------------------------------------------------------- inspection
+    @property
+    def input(self):
+        return self.graph.inputs
+
+    @property
+    def inits(self):
+        return self.graph.init_names()
+
+    def info(self, obj):
+        """Shapes of a value or a nested list of values."""
+        if isinstance(obj, (list, tuple)):
+            return [self.info(i) for i in obj]
+        if hasattr(obj, "shape"):
+            return obj.shape
+        return obj
+
+    @property
+    def timer(self) -> dict:
+        """Seconds per opcode of the float32 executor's timed runs (its
+        ``Executor.timer``)."""
+        return self._oracle.timer if self._oracle is not None else {}
+
+    def timeit(self, status: str = "start"):
+        """The float32 executor's per-opcode profile: ``"start"`` clears
+        ``timer`` and times every later ``forward(engine="oracle")`` op by
+        op (device time on the card); ``"end"`` prints it and stops."""
+        if status == "start":
+            self._timed = True
+            self.oracle.timer, self.oracle.timed = {}, True
+        if status == "end":
+            self._timed = False
+            if self._oracle is not None:
+                self._oracle.timed = False
+            for k, v in self.timer.items():
+                print(k, v)
+
+    def cost_analysis(self, *x):
+        """{"flops", "bytes accessed"} of the program at these inputs'
+        shapes (``Program.cost_analysis``)."""
+        return self.program.cost_analysis(*x)
+
+    def show(self, path: str | None = None):
+        """Print a layer table and return the graph as graphviz DOT text
+        (written to ``path`` when given)."""
+        from ..utils.plot import plot_net
+        return plot_net(self.graph, path)
 
     def __repr__(self):
         g = self.graph

@@ -21,6 +21,13 @@ keeps the tracer's decisions and runs the flow on the device:
    (quantization layer hook), cast to the compute dtype where they are
    floating point, and kept on the device.
 
+While ``profiler.trace`` is active (the module flag ``TRACING``, read once
+per call), each dynamic application runs inside
+``torch.profiler.record_function(<IR layer name>)``, the counterpart of the
+tracer's ``jax.named_scope``; outside a trace the loop enters no scope.
+``Program.cost_analysis`` counts the work of the graph at given input
+shapes, the counterpart of XLA's cost analysis of the compiled program.
+
 The compute-dtype policy is the tracer's: ``conv`` and ``add`` get the
 program compute dtype injected (their int8 fast paths cannot infer it),
 int8 graph inputs are lifted to float at the boundary (user values, never
@@ -42,6 +49,9 @@ from ..registry import get_op
 from .executor import Executor
 
 __all__ = ["Program", "analyze", "GraphPlan"]
+
+# set by profiler.trace while a torch.profiler trace is active
+TRACING = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,13 +234,19 @@ class Program:
         return v
 
     # ----------------------------------------------------------------- tail
+    def _executor(self) -> Executor:
+        """The float32 executor of the tail (and of ``cost_analysis``) on
+        the program's weights (dequantized in a quantized program)."""
+        if self._tail is None:
+            self._tail = Executor(self.graph, self.weights,
+                                  device=self.device)
+        return self._tail
+
     def _run_tail(self, env, senv):
         """Run flow[cut:] in the float32 executor on the program's device,
         seeded with the static values, the weights and the prefix's
         dynamic values (compute-dtype outputs as float32)."""
-        if self._tail is None:
-            self._tail = Executor(self.graph, self.weights,
-                                  device=self.device)
+        self._executor()
         tenv = self._tail.initial_env()
         # static values take precedence over the weights, as in the JAX
         # package's tail (a name the flow rebinds holds the new value)
@@ -254,6 +270,7 @@ class Program:
             for op in ("conv", "add"):
                 overrides[op] = {**overrides.get(op, {}),
                                  "compute_dtype": self.compute_dtype}
+        scoped = TRACING
         env: dict[str, Any] = {}                  # dynamic values (device)
         senv: dict[str, Any] = dict(self._senv0)  # static values (host)
         for n, x in zip(graph.inputs, inputs):
@@ -291,7 +308,12 @@ class Program:
                 kw = {**kw, **ov}
             if spec.cached:
                 kw = {**kw, "cache": self._caches[ri]}
-            _store(env, senv, edge, spec.fn(*args, **kw))
+            if scoped:
+                with torch.profiler.record_function(edge.layers[rec.li]):
+                    out = spec.fn(*args, **kw)
+            else:
+                out = spec.fn(*args, **kw)
+            _store(env, senv, edge, out)
 
         final = graph.flow[-1]
         if self.plan.cut < len(graph.flow):
@@ -306,3 +328,45 @@ class Program:
                 return out[0]
             return out
         return res[0] if len(res) == 1 else tuple(res)
+
+    # ------------------------------------------------------------ profiling
+    def cost_analysis(self, *inputs) -> dict:
+        """{"flops", "bytes accessed"} of one call at these inputs, counted
+        over the float32 executor's run of the whole graph (the fused
+        stages as their decomposed chains): 2 per multiply-add of every
+        conv and GEMM (``torch.utils.flop_counter``) plus 1 per output
+        element of every other op; each op reading its inputs and writing
+        its output once, weights at their stored width, activations at the
+        compute dtype's.  The hand kernels do the same multiply-adds."""
+        from torch.utils.flop_counter import FlopCounterMode
+        ex = self._executor()
+        itemsize = {id(t): _itemsize(d) for t, (_, _, d)
+                    in zip(ex.weights, self.graph.inits)}
+        act = (self._cdt or torch.float32).itemsize
+        gemm_ops = {"conv", "dense", "matmul", "convtranspose", "stage64",
+                    "stagen", "lstm", "gru"}
+        tally = {"elementwise": 0, "bytes": 0}
+
+        def nbytes(v):
+            if isinstance(v, tuple):
+                return sum(nbytes(t) for t in v)
+            if not isinstance(v, torch.Tensor):
+                return 0
+            return v.numel() * itemsize.get(id(v), act)
+
+        def count(i, lname, layer, args, out):
+            tally["bytes"] += sum(nbytes(a) for a in args) + nbytes(out)
+            if layer.op not in gemm_ops:
+                outs = out if isinstance(out, tuple) else (out,)
+                tally["elementwise"] += sum(
+                    o.numel() for o in outs if isinstance(o, torch.Tensor))
+
+        with FlopCounterMode(display=False) as fc:
+            ex.run(*inputs, trace_cb=count)
+        return {"flops": float(fc.get_total_flops() + tally["elementwise"]),
+                "bytes accessed": float(tally["bytes"])}
+
+
+def _itemsize(dtype_name) -> int:
+    """Bytes per element of an init dtype name (fp8 payloads: 1)."""
+    return 1 if "float8" in str(dtype_name) else np.dtype(dtype_name).itemsize

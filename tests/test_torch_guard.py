@@ -68,6 +68,12 @@ def test_importing_the_port_loads_no_jax():
             "import planer_tpu_torch.native, planer_tpu_torch.utils.tile\n"
             "import planer_tpu_torch.models.yolo_post\n"
             "import planer_tpu_torch.models.eval\n"
+            "import planer_tpu_torch.runtime.serving\n"
+            "import planer_tpu_torch.runtime.http_server\n"
+            "import planer_tpu_torch.runtime.profiler\n"
+            "import planer_tpu_torch.parallel.multihost\n"
+            "import planer_tpu_torch.utils.config\n"
+            "import planer_tpu_torch.utils.zoo, planer_tpu_torch.utils.plot\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "assert not bad, bad\n")
@@ -75,6 +81,40 @@ def test_importing_the_port_loads_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+# the JAX package's public names whose port counterpart has another name
+RENAMED = {"NumpyExecutor": "Executor", "TracedProgram": "Program"}
+
+
+def test_public_names_of_the_jax_package_exist_in_the_port():
+    """Every public name ``planer_tpu/__init__.py`` binds (imports,
+    functions, aliases) exists in ``planer_tpu_torch``, under its port
+    name where the two differ."""
+    path = os.path.join(ROOT, "planer_tpu", "__init__.py")
+    names = set()
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, ast.ImportFrom) and node.level == 1:
+            names.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, ast.FunctionDef):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    names = {n for n in names if not n.startswith("_")}
+    assert {"ServingEngine", "profiler", "Config", "Model", "core",
+            "GraphBuilder", "OPS"} <= names
+    missing = [n for n in sorted(names) if not hasattr(pt, RENAMED.get(n, n))]
+    assert not missing, missing
+    assert pt.core() is torch
+    assert isinstance(pt.asnumpy(torch.ones(2)), np.ndarray)
+    t = pt.asarray(np.ones(2), device="cpu")
+    assert isinstance(t, torch.Tensor) and t.device.type == "cpu"
+    if torch.cuda.is_available():
+        assert pt.asarray(np.ones(2)).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pt.asarray(np.ones(2))
 
 
 def test_entry_points_default_to_cuda():
