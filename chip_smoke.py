@@ -146,7 +146,22 @@
    ``Net.timeit`` over the float32 executor, ``layer_quant_errors`` on a
    float ResNet-18 at 224 with one corrupted layer (which must rank first)
    and ``quantize_auto`` on a 16-class ResNet-18 at 224 (returns or raises
-   its RuntimeError).
+   its RuntimeError);
+21. path 16: the main path's net written by ``save_pla`` and read back by
+   ``read_net`` (bit-equal at b1) in two worker processes on the card,
+   each serving a ``parallel.dispatcher.Dispatcher`` (buckets 1-32)
+   through ``run_worker``: 64 requests in waves of 8, then 48 more with
+   worker 0 killed by its PID after the first answer.  Every answer
+   against the parent's ``Net.__call__`` on the batch it was served in
+   (p99 <= 0.02, argmax on decisive logits; the bit-identical count
+   printed), 1 stem + 2 block launches and no fall-off in every batch a
+   worker served, worker 0 evicted and every request answered; the
+   group's rate printed without a claim.  Then the main path's net under
+   ``shard_program`` on a (2, 4) mesh of cuda:0 at b8 and b64 against the
+   unsharded program with no stage64 or stagen launch, UNet (base 32,
+   depth 4, float32, TF32 off) at 512 under (2, 4) ``shard_program`` and
+   (1, 4) ``shard_spatial``, ``spatial_conv`` against one conv, and
+   ``multihost.initialize`` forming an nccl world of one.
 
 ``python3 chip_smoke.py --profile DIR`` adds a torch.profiler pass over the
 steps of the main path, of both ResNet-50 programs of path 2 and of paths
@@ -1928,6 +1943,295 @@ def tools_path(torch, pt, net, requests, step64_ms, synthetic_images, card,
             "timer": timer, "top_layer": top[0], "quantize_auto": outcome}
 
 
+# --------------------------------------------------------------------------
+# path 16: the main path served from two worker processes, and the mesh
+# --------------------------------------------------------------------------
+
+# a DP worker: loads the main path's .pla, warms up, then serves the
+# dispatcher's batches through Net.__call__, logging each batch's rows and
+# its stage64 launches and fall-offs
+DP_WORKER = r"""
+import hashlib, json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import planer_tpu_torch as pt
+from planer_tpu_torch.ops.kernels import stage64 as st
+from planer_tpu_torch.parallel.dispatcher import run_worker
+pla, port, host, logf = sys.argv[2], int(sys.argv[3]), sys.argv[4], sys.argv[5]
+net = pt.read_net(pla, device="cuda")
+net.astype_compute("bfloat16")
+net(np.zeros((1, 3, 224, 224), np.float32))           # warm-up, not logged
+
+def serve(x):
+    before = dict(st.LAUNCHES)
+    y = net(x)
+    launches = {k: v - before.get(k, 0) for k, v in st.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    with open(logf, "a") as f:
+        f.write(json.dumps({
+            "t": time.time(), "n": int(x.shape[0]),
+            "rows": [hashlib.sha1(r.tobytes()).hexdigest() for r in x],
+            "launches": launches, "falloff": dict(st.FALLOFF)}) + "\n")
+    return y
+
+run_worker(("127.0.0.1", port), serve, host_id=host)
+"""
+
+
+def _row_hash(x):
+    import hashlib
+    return hashlib.sha1(np.ascontiguousarray(x).tobytes()).hexdigest()
+
+
+def dp_serving(torch, pt, net, synthetic_images, card, work):
+    """Path 16 (1): the main path's net written with ``save_pla`` and read
+    back by ``read_net`` in two worker processes on the card, each behind
+    ``run_worker`` against a ``Dispatcher`` (buckets 1-32).  64 requests in
+    waves of 8, then 6 batches of 8 queued at once with worker 0 killed by
+    its PID after the first of them is answered.  Every answer is held against the parent's
+    ``Net.__call__`` on the batch it was served in, rebuilt from the
+    worker's log (p99 of max|d|/max|y| <= 0.02, argmax equal on decisive
+    logits; the bit-identical count printed); every batch a worker served
+    launched 1 stem and 2 block kernels and fell off nowhere; the killed
+    worker was evicted and its requests answered by the survivor."""
+    from planer_tpu_torch.parallel.dispatcher import Dispatcher
+    t0 = time.perf_counter()
+    pla = pt.save_pla(os.path.join(work, "main_path"), net.graph,
+                      net.weights)
+    back = pt.read_net(pla, device="cuda")
+    back.astype_compute("bfloat16")
+    x1 = next(synthetic_images(1, (3, 224, 224), seed=101, batch=1))
+    if not np.array_equal(back(x1), net(x1)):
+        raise SystemExit("path 16: the .pla round trip changed the program")
+    del back
+    imgs = np.concatenate(list(synthetic_images(112, (3, 224, 224),
+                                                seed=600, batch=16)))
+    index = {_row_hash(x): i for i, x in enumerate(imgs)}
+    root = os.path.dirname(os.path.abspath(__file__))
+    logs = [os.path.join(work, f"worker{i}.jsonl") for i in range(2)]
+    errs = [open(os.path.join(work, f"worker{i}.err"), "w") for i in range(2)]
+    procs, answers = [], {}
+    disp = Dispatcher(buckets=SERVE_BUCKETS, max_delay_ms=5.0,
+                      ping_interval_s=0.5, ping_timeout_s=10.0)
+    try:
+        for i in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", DP_WORKER, root, pla,
+                 str(disp.address[1]), f"worker{i}", logs[i]],
+                cwd=root, stdout=errs[i], stderr=subprocess.STDOUT))
+        try:
+            disp.wait_for_workers(2, timeout_s=180)
+        except TimeoutError:
+            for i, p in enumerate(procs):
+                errs[i].flush()
+                log(f"worker{i} (exit {p.poll()}):\n" + open(
+                    errs[i].name).read()[-3000:])
+            raise
+        up_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for w in range(0, 64, 8):               # waves of 8
+            futs = {i: disp.submit(imgs[i]) for i in range(w, w + 8)}
+            answers.update({i: f.result(timeout=120)
+                            for i, f in futs.items()})
+        wave_s = time.perf_counter() - t1
+        spread = {h: s["batches"] for h, s in disp.stats()["workers"].items()}
+        futs = {}
+        for w in range(64, 112, 8):     # 6 batches queued at once
+            futs.update({i: disp.submit(imgs[i]) for i in range(w, w + 8)})
+            time.sleep(0.02)
+        futs[64].result(timeout=120)
+        procs[0].kill()                  # exact child PID, mid-stream
+        procs[0].wait(timeout=30)
+        answers.update({i: f.result(timeout=120) for i, f in futs.items()})
+        deadline = time.monotonic() + 30
+        while "worker0" in disp.workers() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        st_ = disp.stats()
+        report = {"requests_before_kill": 64, "requests_after_kill": 48,
+                  "batch_spread": spread, "evictions": st_["evictions"],
+                  "dp_size_after": st_["dp_size"]}
+    finally:
+        disp.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+        for f in errs:
+            f.close()
+    log(f"path 16 dispatcher report: {json.dumps(report, default=str)}")
+    if report["dp_size_after"] != 1 or len(report["evictions"]) != 1 \
+            or report["evictions"][0]["host"] != "worker0":
+        raise SystemExit(f"path 16: worker 0 was not evicted alone: {report}")
+    if sorted(spread) != ["worker0", "worker1"] or min(spread.values()) < 1:
+        raise SystemExit(f"path 16: both workers must serve batches: "
+                         f"{spread}")
+    if sorted(answers) != list(range(112)):
+        raise SystemExit(f"path 16: {len(answers)} answers for 112 requests")
+    # every batch a worker served: its rows, launches and fall-offs
+    zero = _row_hash(np.zeros_like(imgs[0]))
+    batches, per_worker = [], {}
+    for i, path in enumerate(logs):
+        entries = [json.loads(l) for l in open(path)] \
+            if os.path.exists(path) else []
+        per_worker[f"worker{i}"] = len(entries)
+        for e in entries:
+            rows = [index.get(h, -1) if h != zero else None
+                    for h in e["rows"]]
+            if -1 in rows or e["n"] not in SERVE_BUCKETS:
+                raise SystemExit(f"path 16: worker{i} served an unknown "
+                                 f"batch of {e['n']}")
+            want = {"stem_pool_requant": 1, "basic_block": 1,
+                    "basic_block_last": 1}
+            if e["launches"] != want or e["falloff"]:
+                raise SystemExit(f"path 16: worker{i} batch of {e['n']}: "
+                                 f"launches {e['launches']}, fall-off "
+                                 f"{e['falloff']}")
+            batches.append(rows)
+    launches = {k: len(batches) for k in ("stem_pool_requant", "basic_block",
+                                          "basic_block_last")}
+    log(f"path 16 batches logged per worker {per_worker} ({len(batches)} "
+        f"batches, stage64 launches {launches}, 1 stem + 2 blocks each, no "
+        f"fall-off)")
+    # the parent's Net.__call__ on each served batch, padded as served
+    cands = {}
+    for rows in batches:
+        x = np.stack([imgs[r] if r is not None else np.zeros_like(imgs[0])
+                      for r in rows])
+        y = net(x)
+        for k, r in enumerate(rows):
+            if r is not None:
+                cands.setdefault(r, []).append(y[k])
+    pairs, same = [], 0
+    for i in range(112):
+        if i not in cands:
+            raise SystemExit(f"path 16: request {i} is in no logged batch")
+        got = answers[i]
+        best = min(cands[i], key=lambda r: float(np.abs(got - r).max()))
+        same += int(np.array_equal(got, best))
+        pairs.append((got[None], best[None]))
+    leg = agreement([(np.concatenate([a for a, _ in pairs]),
+                      np.concatenate([b for _, b in pairs]))],
+                    "path 16 DP answers vs the parent's Net.__call__ on "
+                    "the same padded batch", 0.02)
+    rate = 64 / wave_s
+    log(f"path 16: {same} of 112 answers bit-identical to the parent's; "
+        f"group rate {rate:.1f} img/s over the 64 requests in waves of 8 "
+        f"({wave_s:.3f} s, host clock; no claim: two processes sharing "
+        f"one card give no scaling figure); workers up in {up_s:.1f} s "
+        f"({card})")
+    return {"launches": launches, "batches": len(batches), "report": report,
+            "bit_identical": same, "leg": leg, "img_s": rate}
+
+
+def mesh_paths(torch, pt, models, net, requests, st, sg, card):
+    """Path 16 (2-4): the main path's net under ``shard_program`` on a
+    (2, 4) mesh of cuda:0 at b8 and b64 against the unsharded program (p99
+    <= 0.02, argmax on decisive logits), with no stage64 or stagen launch
+    over the sharded calls; UNet (base 32, depth 4, float32, TF32 off)
+    under (2, 4) ``shard_program`` at b2 of 512 within 1e-4 of the
+    unsharded program, under (1, 4) ``shard_spatial`` at b1 of 512 within
+    1e-5, and ``spatial_conv`` within 1e-4 of one conv of the whole image;
+    ``multihost.initialize`` forming an nccl world of one."""
+    import socket
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from planer_tpu_torch.parallel import make_mesh, shard_program
+    from planer_tpu_torch.parallel.multihost import initialize
+    from planer_tpu_torch.parallel.spatial import shard_spatial, spatial_conv
+    out = {}
+    mesh = make_mesh((2, 4), ("data", "model"), devices=["cuda:0"] * 8)
+    snet = pt.Net(net.graph, net.weights, compute_dtype=net.compute_dtype,
+                  device="cuda")
+    prog = shard_program(snet, mesh)
+    reqs = {b: requests[b] for b in (8, 64)}
+    st.LAUNCHES.clear()
+    sg.LAUNCHES.clear()
+    sharded = {b: snet(x) for b, x in reqs.items()}
+    check_counts("path 16 stage64 and stagen launches under the (2, 4) "
+                 "mesh", {**st.LAUNCHES, **sg.LAUNCHES}, {})
+    ref = {b: net(x) for b, x in reqs.items()}
+    out["leg"] = agreement([(sharded[b], ref[b]) for b in reqs],
+                           "path 16 DP x TP (2, 4) of cuda:0 vs the "
+                           "unsharded program", 0.02)
+    steps = {}
+    for b, x in reqs.items():
+        xd = torch.as_tensor(x, device="cuda")
+        steps[b] = (cuda_ms(lambda: prog(xd), 3, warmup=1),
+                    cuda_ms(lambda: net.program(xd), 10, warmup=2))
+        log(f"path 16 DP x TP step b{b}: sharded {steps[b][0]:.4f} ms, "
+            f"unsharded {steps[b][1]:.4f} ms (CUDA events; no claim: "
+            f"8 shards of one card; {card})")
+    out["steps"] = steps
+    del snet, prog
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(7)
+        unet = models.unet(in_ch=1, out_ch=1, base=32, depth=4, seed=SEED,
+                           device="cuda")
+        x2 = rng.standard_normal((2, 1, UNET_SIDE, UNET_SIDE)).astype(
+            np.float32)
+        ref2 = unet(x2)
+        shard_program(unet, mesh)
+        got2 = unet(x2)
+        d_tp = float(np.abs(got2 - ref2).max())
+        unet = models.unet(in_ch=1, out_ch=1, base=32, depth=4, seed=SEED,
+                           device="cuda")
+        x1 = x2[:1]
+        ref1 = unet(x1)
+        shard_spatial(unet, make_mesh((1, 4), ("data", "model"),
+                                      devices=["cuda:0"] * 4))
+        got1 = unet(x1)
+        d_sp = float(np.abs(got1 - ref1).max())
+        xc = torch.as_tensor(rng.standard_normal(
+            (1, 64, UNET_SIDE, UNET_SIDE)), dtype=torch.float32,
+            device="cuda")
+        K = torch.as_tensor(rng.standard_normal((64, 64, 3, 3))
+                            * np.sqrt(2 / 576), dtype=torch.float32,
+                            device="cuda")
+        B = torch.as_tensor(0.1 * rng.standard_normal(64),
+                            dtype=torch.float32, device="cuda")
+        sc = spatial_conv(xc, K, B, make_mesh((1, 4), ("data", "model"),
+                                              devices=["cuda:0"] * 4))
+        d_sc = float((sc - F.conv2d(xc, K, B, padding=1)).abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    log(f"path 16 UNet base 32 depth 4 float32 at {UNET_SIDE}: (2, 4) "
+        f"shard_program b2 max|d| {d_tp:.3g} (<= 1e-4), (1, 4) "
+        f"shard_spatial b1 max|d| {d_sp:.3g} (<= 1e-5); spatial_conv 64 -> "
+        f"64 3x3 max|d| {d_sc:.3g} (<= 1e-4) ({card})")
+    if not (np.allclose(got2, ref2, rtol=1e-4, atol=1e-4)
+            and np.allclose(got1, ref1, rtol=1e-5, atol=1e-5)
+            and d_sc <= 1e-4):
+        raise SystemExit("path 16: a sharded UNet or spatial_conv is off "
+                         "its bound")
+    out["unet"] = {"tp": d_tp, "spatial": d_sp, "spatial_conv": d_sc}
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    world = initialize(f"127.0.0.1:{port}", 1, 0, timeout_s=60)
+    try:
+        t = torch.ones(4, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        log(f"path 16 initialize: {world}, backend {dist.get_backend()}, "
+            f"all_reduce of ones {t.tolist()}")
+        if world != {"process_index": 0, "process_count": 1,
+                     "local_devices": 1} or dist.get_backend() != "nccl" \
+                or t.tolist() != [1.0] * 4:
+            raise SystemExit(f"path 16: initialize gave {world}")
+    finally:
+        dist.destroy_process_group()
+    out["world"] = world
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / "
                                  "CUDA port on one NVIDIA card.")
@@ -2213,6 +2517,11 @@ def main():
     p15 = tools_path(torch, pt, net, requests, steps_main[64],
                      synthetic_images, card, args.profile)
 
+    # --------- path 16: two DP worker processes, the mesh, the world of one
+    with tempfile.TemporaryDirectory() as work:
+        p16 = dp_serving(torch, pt, net, synthetic_images, card, work)
+    p16m = mesh_paths(torch, pt, models, net, requests, st, sg, card)
+
     # ---------------------------------------------------- kernel table
     n = 64
     stem_bytes = n * 3 * 224 * 224 + 64 * 147 + 64 * 4 * 4 + n * 64 * 56 * 56
@@ -2261,6 +2570,7 @@ def main():
             row["launches_path11"] = p11["launches"][name]
             row["launches_path12"] = p12["launches"][name]
             row["launches_path14"] = p14["launches"][name]
+            row["launches_path16"] = p16["launches"][name]
         rows.append(row)
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
@@ -2333,6 +2643,13 @@ def main():
         f"{1e3 * p15['cost_report']['ideal_time_s']:.4f} ms of a "
         f"{steps_main[64]:.4f} ms b64 step, quantize_auto "
         f"{p15['quantize_auto']} (printed, no claim)")
+    log(f"path 16 (DP workers): {p16['batches']} batches, answers p99 "
+        f"{p16['leg'][0]:.6g}, {p16['bit_identical']} of 112 bit-identical, "
+        f"{p16['img_s']:.1f} img/s, dp_size after the kill "
+        f"{p16['report']['dp_size_after']}; DP x TP p99 "
+        f"{p16m['leg'][0]:.6g}, steps (sharded, unsharded) "
+        f"{p16m['steps']} ms; UNet max|d| {p16m['unet']} (printed, no "
+        f"claim)")
     log(f"legs: plain-stage p99 {leg1[0]:.6g}; executor p99 {leg3[0]:.6g}; "
         f"path 2 plain p99 {leg1_50[0]:.6g}, fuse='all' executor gap p99 "
         f"{gap50[0]:.6g}, default-fuse executor p99 {leg3_50[0]:.6g}; "

@@ -68,18 +68,39 @@ def core(obj=None, silent: bool = True):
 
 def asnumpy(arr, **kw):
     """A numpy array of ``arr`` (a torch tensor on any device, or an
-    array-like)."""
+    array-like).  A bfloat16 tensor widens to float32, exactly: numpy has
+    no bfloat16 without ``ml_dtypes``, which the port does not import."""
     import numpy as np
     import torch
     if isinstance(arr, torch.Tensor):
-        arr = arr.detach().cpu().numpy()
+        arr = arr.detach().cpu()
+        if arr.dtype == torch.bfloat16:
+            arr = arr.float()
+        arr = arr.numpy()
     return np.asarray(arr, **kw)
 
 
-def asarray(arr, device="cuda", **kw):
+def _torch_dtype(dtype):
+    """The torch dtype of a torch dtype, a numpy dtype or scalar type
+    (``np.float16``, ``np.dtype("int8")``) or a dtype name (``"float32"``,
+    ``"bfloat16"``); None stays None."""
+    import numpy as np
+    import torch
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    out = getattr(torch, name, None)
+    if not isinstance(out, torch.dtype):
+        raise TypeError(f"no torch dtype for {dtype!r}")
+    return out
+
+
+def asarray(arr, dtype=None, device="cuda", **kw):
     """A torch tensor of ``arr`` (``torch.as_tensor``) on the CUDA card, or
-    on ``device`` where the caller names one (``device="cpu"``).  Raises
-    where no card is available and none was named."""
+    on ``device`` where the caller names one (``device="cpu"``).  ``dtype``
+    may be a torch dtype, a numpy one or a dtype name.
+    Raises where no card is available and none was named."""
     import torch
     from .device import resolve_device
-    return torch.as_tensor(arr, device=resolve_device(device), **kw)
+    return torch.as_tensor(arr, dtype=_torch_dtype(dtype),
+                           device=resolve_device(device), **kw)

@@ -43,9 +43,14 @@ def load_graph(path: str):
                             f"(.pla/.json+.npy/.onnx all missing)")
 
 
-def read_net(path: str, device="cuda") -> Net:
-    """Load a model from disk onto ``device``."""
+def read_net(path: str, debug: bool = False, *, device="cuda") -> Net:
+    """Load a model from disk onto ``device`` (keyword only).  ``debug``
+    prints each layer's JSON before loading, as the JAX package's
+    ``read_net`` does."""
     graph, blob = load_graph(path)
+    if debug:
+        for layer in graph.layers:
+            print(layer.to_json())
     net = Net(graph, device=device)
     net.load_weights(blob)
     return net

@@ -210,15 +210,21 @@ def dense_q_kernel(x2d, q, scale, B=None):
 # public ops
 # --------------------------------------------------------------------------
 
-def dense_q(x, K: QTensor, B=None, *, plain=False):
+def dense_q(x, K: QTensor, B=None, *, plain=False, branch=None):
     """y = x @ dequant(K).T + B;  K.q is (N, Kd) int8 or float8_e4m3fn,
-    scales (N, 1).  The shape alone picks the numerics (``tile_plan``).
-    ``plain`` runs the kernel branch's plain version on any device — the
-    reference a caller holds the kernel against; it never happens by
-    itself."""
+    scales (N, 1).  The shape alone picks the numerics (``tile_plan``, its
+    rows counted at the logical batch of ``torch_ops.logical_batch``), or
+    ``branch`` (``"kernel"`` or ``"fallback"``) where a sharded program
+    forces the unsharded GEMM's.  ``plain`` runs the kernel branch's plain
+    version on any device — the reference a caller holds the kernel
+    against; it never happens by itself."""
+    from ..torch_ops import logical_rows
     N, Kd = K.q.shape
     x2d = x.reshape(-1, Kd)
-    if tile_plan(x2d.shape[0], N, Kd) is None:
+    if branch is None:
+        rows = logical_rows(x2d.shape[0], x.shape[0] if x.ndim > 1 else 0)
+        branch = "fallback" if tile_plan(rows, N, Kd) is None else "kernel"
+    if branch == "fallback":
         y = fallback_dense(x2d, K, B)
     elif plain:
         y = dense_q_plain(x2d, K.q, K.scale, B)

@@ -43,6 +43,8 @@ on the host, the float32 executor hands them over as it holds them.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 
 import numpy as np
@@ -70,7 +72,8 @@ __all__ = ["conv2d", "conv_transpose2d", "dense", "matmul", "maxpool",
            "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
            "reduce_prod", "argmax", "argmin", "space_to_depth",
            "depth_to_space", "upsample", "resize_op", "stage64", "stagen",
-           "return_", "conv_s8", "quantize", "scalar", "to_dtype"]
+           "return_", "conv_s8", "quantize", "scalar", "to_dtype",
+           "conv_route", "logical_batch", "logical_rows"]
 
 
 # opt-in, as in the JAX package (jax_ops._PALLAS_CONV1X1): route quantized
@@ -81,6 +84,10 @@ _PALLAS_CONV1X1 = False
 # quantized 3x3 conv with at most 64 outputs and C < 128 takes dequant +
 # float conv in place of the stacked s8 form
 _STACK_CONV = True
+
+# the logical batch of ``logical_batch`` (None: the tensors' own)
+_LOGICAL_BATCH: contextvars.ContextVar = contextvars.ContextVar(
+    "logical_batch", default=None)
 
 
 # --------------------------------------------------------------------------
@@ -213,16 +220,104 @@ def _conv_w8a8(x, K, B, strides, dilations, pads, pre_quantized=False,
     return out
 
 
+@contextlib.contextmanager
+def logical_batch(n):
+    """Context in which every shape gate reads a leading (batch) dimension
+    as ``n``.  A sharded program (``parallel``) runs an op on one shard of
+    its batch, but the JAX program it mirrors is traced at the logical
+    (unsharded) shapes, so the gates must take their decisions there."""
+    token = _LOGICAL_BATCH.set(n)
+    try:
+        yield
+    finally:
+        _LOGICAL_BATCH.reset(token)
+
+
+def logical_rows(rows: int, lead: int) -> int:
+    """``rows`` of a tensor whose leading dimension is ``lead``, counted at
+    the logical batch of ``logical_batch`` (unchanged outside one)."""
+    n = _LOGICAL_BATCH.get()
+    return rows if n is None or not lead else rows * n // lead
+
+
+def _int8_codes(xshape, xdtype, K, group) -> bool:
+    """Whether a conv's int8 input holds activation codes at K.act_scale
+    (the contract of int8 activations)."""
+    return (xdtype == torch.int8 and K.q.dtype == torch.int8
+            and K.act_scale is not None and len(xshape) == 4
+            and int(group or 1) == 1)
+
+
+def conv_route(xshape, xdtype, K, group=1, strides=None, dilations=None,
+               pads=None, auto_pad=None) -> str:
+    """The arithmetic a conv with weight ``K`` takes on an input of shape
+    ``xshape`` and dtype ``xdtype``: ``"s8"`` (int8 codes with C >= 128
+    straight into the s8 conv), ``"w8a8"`` (per-tensor activation quant and
+    an exact s8 conv), ``"gemm"`` or ``"gemm_fallback"`` (the opt-in 1x1
+    route through ``dense_q``'s kernel branch or its fallback), or
+    ``"float"`` (dequant and a float conv; int8 codes with C < 128 are
+    decoded to the compute dtype first).  The gates are the JAX package's
+    and read the shapes given, the batch counted at ``logical_batch``: a
+    program that runs an op in pieces (``parallel``) asks for the route of
+    the logical (unsharded) op and forces it on each piece."""
+    if not isinstance(K, QTensor):
+        return "float"
+    kshape = tuple(K.shape)
+    group = int(group or 1)
+    strides = (1, 1) if strides is None else tuple(int(s) for s in strides)
+    dilations = ((1, 1) if dilations is None
+                 else tuple(int(d) for d in dilations))
+    if auto_pad:
+        pads = resolve_conv_pads(tuple(xshape[2:]), kshape[2:], strides,
+                                 dilations, pads, auto_pad)
+    pads = (0, 0, 0, 0) if pads is None else tuple(int(p) for p in pads)
+    floating = xdtype.is_floating_point
+    if _int8_codes(xshape, xdtype, K, group):
+        if xshape[1] >= 128:
+            return "s8"
+        floating = True
+    x4 = len(xshape) == 4
+    rows = logical_rows(int(np.prod(xshape[:1] + tuple(xshape[2:]),
+                                    dtype=np.int64)), xshape[0] if x4 else 0)
+    quantized = (K.act_dynamic or K.act_scale is not None) \
+        and K.q.dtype == torch.int8
+    if (quantized and x4 and xshape[1] >= 128 and group == 1
+            and rows >= 4096 and floating):
+        return "w8a8"
+    # the JAX package's output-row stacking gate (jax_ops._conv2d): the
+    # same exact int32 sums and per-channel dequant in another TPU layout
+    stackable = (
+        _STACK_CONV and len(kshape) == 4 and kshape[2:] == (3, 3)
+        and kshape[0] <= 64 and group == 1
+        and strides == (1, 1) and dilations == (1, 1)
+        and pads == (1, 1, 1, 1) and x4
+        and xshape[2] % 2 == 0 and xshape[2] >= 4
+        and rows >= 100_000 and xshape[3] <= 128)
+    if stackable and quantized and floating:
+        return "w8a8"
+    # the JAX package's opt-in 1x1 route: a 1x1 stride-1 ungrouped conv is
+    # a GEMM over (N*H*W, C), handed to dense_q (kernel branch where the
+    # shape tiles, its fallback's numerics elsewhere)
+    if (_PALLAS_CONV1X1 and len(kshape) == 4 and kshape[2:] == (1, 1)
+            and group == 1 and strides == (1, 1)
+            and pads == (0, 0, 0, 0)):
+        from .kernels import gemm
+        plan = gemm.tile_plan(rows, kshape[0], kshape[1])
+        return "gemm" if plan is not None else "gemm_fallback"
+    return "float"
+
+
 def conv2d(x, K, B=None, group=1, strides=(1, 1), dilations=(1, 1),
            pads=(0, 0, 0, 0), auto_pad=None, out_scale=None,
-           compute_dtype=None, plain=False):
+           compute_dtype=None, plain=False, route=None):
     """2-D convolution with optional int8 activation-code emission
     (``out_scale``: re-emit the output as codes at that scale).  ``plain``
     (an op override) runs the dense_q GEMM of the 1x1 route on its plain
-    version on any device."""
+    version on any device.  ``route`` forces a ``conv_route``: a program
+    that runs the op in pieces (``parallel``) gives the logical op's."""
     out = _conv2d(x, K, B, group=group, strides=strides, dilations=dilations,
                   pads=pads, auto_pad=auto_pad, compute_dtype=compute_dtype,
-                  plain=plain)
+                  plain=plain, route=route)
     if out_scale is None:
         return out
     return quantize(out, out_scale)
@@ -230,7 +325,7 @@ def conv2d(x, K, B=None, group=1, strides=(1, 1), dilations=(1, 1),
 
 def _conv2d(x, K, B=None, group=1, strides=(1, 1), dilations=(1, 1),
             pads=(0, 0, 0, 0), auto_pad=None, compute_dtype=None,
-            plain=False):
+            plain=False, route=None):
     kshape = tuple(K.shape)
     strides = (1, 1) if strides is None else tuple(int(s) for s in strides)
     dilations = (1, 1) if dilations is None else tuple(int(d) for d in dilations)
@@ -238,52 +333,29 @@ def _conv2d(x, K, B=None, group=1, strides=(1, 1), dilations=(1, 1),
         pads = resolve_conv_pads(x.shape[2:], kshape[2:], strides, dilations,
                                  pads, auto_pad)
     pads = (0, 0, 0, 0) if pads is None else tuple(int(p) for p in pads)
-    # the JAX package's output-row stacking gate (jax_ops._conv2d): only the
-    # s8 branch below depends on it, since stacking a float conv changes its
-    # TPU layout and not its sums
-    stackable = (
-        _STACK_CONV and len(kshape) == 4 and kshape[2:] == (3, 3)
-        and kshape[0] <= 64 and int(group) == 1
-        and strides == (1, 1) and dilations == (1, 1)
-        and pads == (1, 1, 1, 1) and x.ndim == 4
-        and x.shape[2] % 2 == 0 and x.shape[2] >= 4
-        and x.shape[0] * x.shape[2] * x.shape[3] >= 100_000
-        and x.shape[3] <= 128)
     if isinstance(K, QTensor):
-        quantized = (K.act_dynamic or K.act_scale is not None) \
-            and K.q.dtype == torch.int8
-        # int8 activations are by contract CODES at K.act_scale
-        if (x.dtype == torch.int8 and K.q.dtype == torch.int8
-                and K.act_scale is not None and x.ndim == 4
-                and int(group) == 1):
-            if x.shape[1] >= 128:          # s8 path, no quantize pass
-                return _conv_w8a8(x, K, B, strides, dilations, pads,
-                                  pre_quantized=True,
-                                  compute_dtype=compute_dtype)
+        if route is None:
+            route = conv_route(tuple(x.shape), x.dtype, K, group, strides,
+                               dilations, pads)
+        if route == "s8":                  # int8 codes, no quantize pass
+            return _conv_w8a8(x, K, B, strides, dilations, pads,
+                              pre_quantized=True,
+                              compute_dtype=compute_dtype)
+        if _int8_codes(x.shape, x.dtype, K, group):
             # C < 128: decode the codes to the compute dtype
             odt = to_dtype(compute_dtype) or torch.float32
             x = x.to(odt) * scalar(K.act_scale, x, odt)
-        if (quantized and x.ndim == 4 and x.shape[1] >= 128
-                and int(group) == 1
-                and x.shape[0] * x.shape[2] * x.shape[3] >= 4096
-                and x.is_floating_point()):
+        if route == "w8a8":
             return _conv_w8a8(x, K, B, strides, dilations, pads)
-        if stackable and quantized and x.is_floating_point():
-            # the JAX package's output-row-stacked W8A8 form: the same exact
-            # int32 sums and per-channel dequant in another TPU lane layout
-            return _conv_w8a8(x, K, B, strides, dilations, pads)
-        # the JAX package's opt-in 1x1 route: a 1x1 stride-1 ungrouped conv
-        # is a GEMM over (N*H*W, C), handed to dense_q (kernel branch where
-        # the shape tiles, its fallback's numerics elsewhere)
-        if (_PALLAS_CONV1X1 and K.q.ndim == 4
-                and tuple(K.q.shape[2:]) == (1, 1) and int(group) == 1
-                and strides == (1, 1) and pads == (0, 0, 0, 0)):
+        if route in ("gemm", "gemm_fallback"):
             from .kernels import gemm
             n, c, h, w = x.shape
             o = K.q.shape[0]
             xm = x.permute(0, 2, 3, 1).reshape(-1, c)      # (NHW, C)
             kq = QTensor(K.q.reshape(o, c), K.scale.reshape(o, 1))
-            y = gemm.dense_q(xm, kq, B, plain=plain)
+            y = gemm.dense_q(xm, kq, B, plain=plain,
+                             branch="kernel" if route == "gemm"
+                             else "fallback")
             return y.reshape(n, h, w, o).permute(0, 3, 1, 2)
         K = K.dequant(x.dtype)
     pt, pl, pb, pr = pads
@@ -329,14 +401,15 @@ def conv_transpose2d(x, K, B=None, strides=(2, 2), dilations=(1, 1),
 # dense / pool
 # --------------------------------------------------------------------------
 
-def dense(x, K, B=None, shp=None, plain=False):
+def dense(x, K, B=None, shp=None, plain=False, branch=None):
     """y = x @ K.T + B.  A quantized K goes through ``gemm.dense_q``, as in
     the JAX package: its kernel branch where the shape tiles, its fallback's
     numerics elsewhere (the ResNet fc).  ``plain`` (an op override) runs the
-    kernel branch's plain version on any device."""
+    kernel branch's plain version on any device; ``branch`` (a sharded
+    program's) forces the branch the unsharded GEMM takes."""
     if isinstance(K, QTensor):
         from .kernels import gemm
-        return gemm.dense_q(x, K, B, plain=plain)
+        return gemm.dense_q(x, K, B, plain=plain, branch=branch)
     # bf16 operands are exact in f32, so an f32 product is the f32-accumulated
     # bf16 dot (TF32 is off for matmuls by default and in the executor)
     y = torch.matmul(x.float(), K.to(x.dtype).float().t()).to(x.dtype)

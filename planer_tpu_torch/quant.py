@@ -328,7 +328,9 @@ def dequant_weights(graph: Graph, weights: list[np.ndarray]) -> list[np.ndarray]
 
 def make_quant_program(graph: Graph, weights: list[np.ndarray],
                        compute_dtype: str | None = None,
-                       device="cuda") -> Program:
+                       device="cuda", cls=Program, **kw) -> Program:
+    """The quantized program of a graph: a ``cls`` (``Program`` or a
+    subclass, which gets ``kw``) whose params are QTensors."""
     idx = graph.init_index()
     deq = dequant_weights(graph, weights)
     act_mode = graph.meta.get("act_quant")
@@ -364,6 +366,6 @@ def make_quant_program(graph: Graph, weights: list[np.ndarray],
             return leaf.dequant()
         return leaf
 
-    return Program(graph, deq, weight_materializer=materialize,
-                   param_transform=param_transform,
-                   compute_dtype=compute_dtype, device=device)
+    return cls(graph, deq, weight_materializer=materialize,
+               param_transform=param_transform,
+               compute_dtype=compute_dtype, device=device, **kw)

@@ -21,10 +21,13 @@ __all__ = ["Net"]
 
 
 def _numpy(v):
+    """numpy of an output (a bfloat16 tensor widened to float32, exactly:
+    numpy has no bfloat16)."""
     if isinstance(v, tuple):
         return tuple(_numpy(t) for t in v)
     if isinstance(v, torch.Tensor):
-        return v.detach().cpu().numpy()
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
     return np.asarray(v)
 
 

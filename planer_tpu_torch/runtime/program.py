@@ -274,7 +274,8 @@ class Program:
         env: dict[str, Any] = {}                  # dynamic values (device)
         senv: dict[str, Any] = dict(self._senv0)  # static values (host)
         for n, x in zip(graph.inputs, inputs):
-            env[n] = self._cast_graph_in(_to_device(x, self.device))
+            env[n] = self._bind_input(
+                self._cast_graph_in(_to_device(x, self.device)))
 
         for ri, rec in enumerate(self.plan.records):
             edge = graph.flow[rec.edge]
@@ -306,15 +307,29 @@ class Program:
             ov = overrides.get(layer.op)
             if ov:
                 kw = {**kw, **ov}
-            if spec.cached:
-                kw = {**kw, "cache": self._caches[ri]}
             if scoped:
                 with torch.profiler.record_function(edge.layers[rec.li]):
-                    out = spec.fn(*args, **kw)
+                    out = self._apply(ri, rec, layer, spec, args, kw)
             else:
-                out = spec.fn(*args, **kw)
+                out = self._apply(ri, rec, layer, spec, args, kw)
             _store(env, senv, edge, out)
+        return self._finish(env, senv)
 
+    # the steps a program over several devices (``parallel``) replaces
+    def _bind_input(self, x):
+        """A graph input as the program holds it."""
+        return x
+
+    def _apply(self, ri, rec, layer, spec, args, kw):
+        """Run the dynamic application ``ri`` of ``layer`` on ``args``."""
+        if spec.cached:
+            kw = {**kw, "cache": self._caches[ri]}
+        return spec.fn(*args, **kw)
+
+    def _finish(self, env, senv):
+        """The graph's outputs: the host tail where the flow was cut, the
+        final edge's values cast to the boundary dtype."""
+        graph = self.graph
         final = graph.flow[-1]
         if self.plan.cut < len(graph.flow):
             env = self._run_tail(env, senv)

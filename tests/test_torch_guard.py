@@ -28,6 +28,8 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "planer_tpu")
 
 def _port_files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    out += [os.path.join(ROOT, "examples", f)
+            for f in ("torch_shard_multichip.py", "torch_serve_sharded.py")]
     for d, _, files in os.walk(os.path.join(ROOT, "planer_tpu_torch")):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
@@ -72,6 +74,10 @@ def test_importing_the_port_loads_no_jax():
             "import planer_tpu_torch.runtime.http_server\n"
             "import planer_tpu_torch.runtime.profiler\n"
             "import planer_tpu_torch.parallel.multihost\n"
+            "import planer_tpu_torch.parallel.sharding\n"
+            "import planer_tpu_torch.parallel.spatial\n"
+            "import planer_tpu_torch.parallel.dispatcher\n"
+            "import planer_tpu_torch.parallel.multichip\n"
             "import planer_tpu_torch.utils.config\n"
             "import planer_tpu_torch.utils.zoo, planer_tpu_torch.utils.plot\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -110,6 +116,17 @@ def test_public_names_of_the_jax_package_exist_in_the_port():
     assert isinstance(pt.asnumpy(torch.ones(2)), np.ndarray)
     t = pt.asarray(np.ones(2), device="cpu")
     assert isinstance(t, torch.Tensor) and t.device.type == "cpu"
+    # dtypes as the JAX package takes them: numpy types, dtype objects and
+    # names; a bfloat16 tensor comes back as float32 numpy
+    for dt, want in ((np.float16, torch.float16),
+                     ("float32", torch.float32),
+                     (np.dtype("int8"), torch.int8), (np.int32, torch.int32),
+                     ("bfloat16", torch.bfloat16), (bool, torch.bool),
+                     (torch.float64, torch.float64)):
+        assert pt.asarray([1, 0], dtype=dt, device="cpu").dtype == want
+    b = pt.asnumpy(torch.ones(2, dtype=torch.bfloat16))
+    assert b.dtype == np.float32 and (b == 1).all()
+    assert pt.asnumpy(torch.ones(2), dtype=np.float16).dtype == np.float16
     if torch.cuda.is_available():
         assert pt.asarray(np.ones(2)).device.type == "cuda"
     else:
@@ -419,3 +436,54 @@ def test_read_net_onnx_defaults_to_cuda(tmp_path):
     assert net.device.type == "cpu"
     np.testing.assert_array_equal(net(np.array([-1.0, 2.0], np.float32)),
                                   [0.0, 2.0])
+
+
+def _all_of(path):
+    """The ``__all__`` list a module file assigns (read, not imported)."""
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return [c.value for c in node.value.elts]
+    raise AssertionError(f"{path} has no __all__")
+
+
+def test_public_names_of_the_jax_parallel_package_exist_in_the_port():
+    """``planer_tpu.parallel``'s names and its ``spatial``, ``multihost``,
+    ``dispatcher`` and ``sharding`` modules' ``__all__`` are the port's."""
+    import importlib
+    jdir = os.path.join(ROOT, "planer_tpu", "parallel")
+    par = importlib.import_module("planer_tpu_torch.parallel")
+    assert par.__all__ == _all_of(os.path.join(jdir, "__init__.py"))
+    assert all(hasattr(par, n) for n in par.__all__)
+    for mod in ("sharding", "spatial", "multihost", "dispatcher"):
+        m = importlib.import_module(f"planer_tpu_torch.parallel.{mod}")
+        assert m.__all__ == _all_of(os.path.join(jdir, f"{mod}.py")), mod
+        assert all(callable(getattr(m, n)) for n in m.__all__), mod
+    from planer_tpu_torch.parallel import dispatcher, sharding, spatial
+    assert callable(dispatcher.spawn_toy_worker)
+    assert callable(spatial.spatial_conv)
+    assert sharding.FUSED_OVERRIDES == {
+        "stage64": {"force_decomposed": True},
+        "stagen": {"force_decomposed": True}}
+
+
+def test_dryrun_multichip_and_examples_on_a_cpu_mesh():
+    """``dryrun_multichip(8, device="cpu")`` and both parallel examples with
+    ``--device cpu`` run on a mesh of 8 repeated ``cpu`` devices; without
+    the argument each asks for the card, which is not here."""
+    from planer_tpu_torch.parallel.multichip import dryrun_multichip
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            dryrun_multichip(8)
+    rep = dryrun_multichip(8, device="cpu")
+    assert rep["mesh"] == {"data": 2, "model": 4}
+    assert rep["dispatcher"]["dp_size_after"] == 1
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for ex, want in (("torch_shard_multichip.py", "out: (8, 64)"),
+                     ("torch_serve_sharded.py", "served 24 requests")):
+        r = subprocess.run([sys.executable, os.path.join("examples", ex),
+                            "--device", "cpu"],
+                           cwd=ROOT, env=env, capture_output=True, text=True,
+                           timeout=300)
+        assert r.returncode == 0, r.stderr
+        assert want in r.stdout, r.stdout

@@ -169,3 +169,42 @@ def test_cost_analysis_against_the_jax_program():
     assert set(ca) == {"flops", "bytes accessed"}
     assert 1.6 <= ca["flops"] / ja["flops"] <= 1.8
     assert 0.3 <= ca["bytes accessed"] / ja["bytes accessed"] <= 0.4
+
+
+def test_read_net_debug_prints_what_the_jax_package_prints(tmp_path,
+                                                            capsys):
+    """``read_net(path, True)``: ``debug`` prints each layer's JSON before
+    loading, as the JAX package's does, and the device is keyword-only (a
+    stray positional True can no longer become a device)."""
+    from planer_tpu import io as jio
+    net = tm.resnet18(num_classes=8, device="cpu")
+    p = pt.save_pla(str(tmp_path / "r18"), net.graph, net.weights)
+    capsys.readouterr()
+    tnet = pt.read_net(p, True, device="cpu")
+    printed_t = capsys.readouterr().out.splitlines()
+    jnet = jio.read_net(p, debug=True)
+    printed_j = capsys.readouterr().out.splitlines()
+    assert printed_t == printed_j
+    assert len(printed_t) == len(net.graph.layers)
+    x = np.random.default_rng(3).standard_normal(
+        (2, 3, 32, 32)).astype(np.float32)
+    np.testing.assert_allclose(tnet(x), np.asarray(jnet.forward(x)),
+                               rtol=1e-4, atol=1e-4)
+    with pytest.raises(TypeError):
+        pt.read_net(p, False, "cpu")
+    assert pt.InferenceSession is pt.read_net
+
+
+def test_bf16_outputs_widen_to_float32():
+    """The port's numpy of a bfloat16 tensor is float32 (exact); the JAX
+    package's is an ``ml_dtypes`` bfloat16 array, which the port may not
+    import.  Same values."""
+    v = torch.tensor([1.0, -2.5, 3.0e38, 1.0 / 3.0]).to(torch.bfloat16)
+    got = pt.asnumpy(v)
+    want = J.asnumpy(J.asarray(np.asarray(v.float()), dtype="bfloat16"))
+    assert got.dtype == np.float32 and want.dtype == ml_dtypes.bfloat16
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    from planer_tpu_torch.runtime.net import _numpy
+    out = _numpy((v, v.float()))
+    assert [o.dtype for o in out] == [np.float32, np.float32]
+    np.testing.assert_array_equal(out[0], got)
