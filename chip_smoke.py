@@ -161,7 +161,24 @@
    unsharded program with no stage64 or stagen launch, UNet (base 32,
    depth 4, float32, TF32 off) at 512 under (2, 4) ``shard_program`` and
    (1, 4) ``shard_spatial``, ``spatial_conv`` against one conv, and
-   ``multihost.initialize`` forming an nccl world of one.
+   ``multihost.initialize`` forming an nccl world of one;
+22. path 17: the user examples.  The four ``examples/torch_*.py`` scripts
+   run as a user runs them, started together, each in its own process on
+   cuda:0: each exits 0 and prints its JAX original's lines.  Then each
+   example's ``main(device="cuda")`` in this process with TF32 off:
+   weight-only INT8 ResNet-18's bf16 logits against the float32 executor on
+   the same dequantized weights (max|d|/max|y| <= 0.05, the top-5 ids equal
+   at every rank the difference cannot swap); float32 YOLO-v3 at 416 with
+   raw heads through ``detect`` against ``main(device="cpu")`` (heads within
+   1e-4 of max|y|, the score filter's survivors and the detections equal
+   away from the thresholds); UNet (base 16, depth 3) tiled over 700 x 900
+   with an integer margin against the CPU run (1e-4); 32 requests served
+   by a ``ServingEngine`` over a float ResNet-18 at 64 px, each answer
+   within 1e-4 of ``net(x)`` at b1, ``stats()`` adding up and no spatial
+   probe; the zoo package's ``.pla`` round trip and one forward.  No
+   stage64, stagen or dense_q launch over the path (the JAX package runs
+   no Pallas kernel on these configurations); wall times on the host clock
+   printed.
 
 ``python3 chip_smoke.py --profile DIR`` adds a torch.profiler pass over the
 steps of the main path, of both ResNet-50 programs of path 2 and of paths
@@ -2232,6 +2249,321 @@ def mesh_paths(torch, pt, models, net, requests, st, sg, card):
     return out
 
 
+# --------------------------------------------------------------------------
+# path 17: the user examples
+# --------------------------------------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# each example script and the starts of the lines its output must hold
+EXAMPLES = {
+    "torch_classify_resnet.py": ("top-5 class ids: [", "top-5 scores  : ["),
+    "torch_detect_yolov3.py": ("native NMS: True",
+                               " detections: [x1 y1 x2 y2 score class]"),
+    "torch_segment_unet_tiled.py": ("input  (700, 900) -> mask (700, 900) "
+                                    "range [",),
+    "torch_serve_continuous.py": ("served 32 requests; stats: {",),
+}
+DETECT_CONF, DETECT_IOU = 0.3, 0.45     # the detect example's thresholds
+DETECT_SIZE = 416                       # and its side
+
+
+def load_example(name):
+    """An example script of ``examples/`` (or the zoo package's directory)
+    imported as a module of that name, its ``__main__`` block not run."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples", name)
+    if os.path.isdir(path):
+        path = os.path.join(path, "__init__.py")
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(name)[0], path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def top5_decided(got, ref):
+    """The ranks 0-4 of ``ref``'s top-5 whose scores lie further than
+    max|got - ref| (the largest difference over all scores) from both
+    neighbours', and those of them where ``got``'s top-5 id differs."""
+    d = float(np.abs(got - ref).max())
+    order = np.argsort(-ref, kind="stable")
+    srt = ref[order]
+    gtop = np.argsort(-got, kind="stable")[:5]
+    decided = [i for i in range(5) if srt[i] - srt[i + 1] > d
+               and (i == 0 or srt[i - 1] - srt[i] > d)]
+    return decided, [i for i in decided if gtop[i] != order[i]]
+
+
+def _iou(box, boxes):
+    """IoU of one [x1 y1 x2 y2] box with each row of ``boxes``."""
+    ix = np.clip(np.minimum(box[2], boxes[:, 2])
+                 - np.maximum(box[0], boxes[:, 0]), 0, None)
+    iy = np.clip(np.minimum(box[3], boxes[:, 3])
+                 - np.maximum(box[1], boxes[:, 1]), 0, None)
+    inter = ix * iy
+    area = lambda b: (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter / (area(box) + area(boxes) - inter + 1e-9)
+
+
+def detections_agree(got, want, cands, conf=DETECT_CONF, iou=DETECT_IOU,
+                     tol=1e-4, box_tol=1e-3):
+    """Two ``detect`` answers for one image, (k, 6) rows [x1 y1 x2 y2
+    score class], compared away from the thresholds: a row whose score
+    lies within ``tol`` of ``conf``, or which overlaps a same-class row of
+    ``cands`` (the reference's pre-NMS candidates) that could suppress it
+    (a score not below its own, less ``tol``) at an IoU within ``tol`` of
+    ``iou``, is left out of both.  The rest must be equal in number and,
+    sorted by score, equal in class and within ``box_tol`` of the largest
+    coordinate.  Returns (rows compared, rows left out, problems)."""
+    def stable(rows):
+        keep = np.abs(rows[:, 4] - conf) > tol
+        for k, r in enumerate(rows):
+            same = cands[(cands[:, 5] == r[5])
+                         & (cands[:, 4] >= r[4] - tol)]
+            if len(same) and (np.abs(_iou(r, same) - iou) <= tol).any():
+                keep[k] = False
+        rows = rows[keep]
+        return rows[np.argsort(-rows[:, 4], kind="stable")], int(
+            (~keep).sum())
+    g, g_out = stable(np.asarray(got, np.float32).reshape(-1, 6))
+    w, w_out = stable(np.asarray(want, np.float32).reshape(-1, 6))
+    if len(g) != len(w):
+        return 0, g_out + w_out, [f"{len(g)} detections against {len(w)}"]
+    problems = []
+    if len(w):
+        scale = float(np.abs(w[:, :4]).max()) or 1.0
+        d = float(np.abs(g[:, :5] - w[:, :5]).max()) / scale
+        if d > box_tol:
+            problems.append(f"boxes max|d|/max|y| {d:.3g} > {box_tol}")
+        if not (g[:, 5] == w[:, 5]).all():
+            problems.append("classes differ")
+    return len(w), g_out + w_out, problems
+
+
+def filtered_agree(dec_got, dec_want, conf=DETECT_CONF, tol=1e-4):
+    """The score filter's survivors (before the size filter) of two decoded
+    head sets of one image, equal away from ``conf``: returns (survivors
+    of the reference, problems)."""
+    from planer_tpu_torch import native
+    (ig, _, sg_), (iw, _, sw) = (native.score_filter(d, conf)
+                                 for d in (dec_got, dec_want))
+    near = set(ig[np.abs(sg_ - conf) <= tol]) | set(iw[np.abs(sw - conf)
+                                                        <= tol])
+    a, b = set(ig) - near, set(iw) - near
+    return len(iw), ([] if a == b else
+                     [f"score filter: {len(a ^ b)} rows differ"])
+
+
+def run_examples(card):
+    """Path 17 (1): the four example scripts as a user runs them,
+    ``python3 examples/torch_*.py``, started together, each in its own
+    process on cuda:0; each must exit 0 and print its lines."""
+    procs, out = {}, {}
+    try:
+        for name in EXAMPLES:
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, os.path.join("examples", name)], cwd=ROOT,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for name, (t0, p) in procs.items():
+            so, se = p.communicate(timeout=600)
+            out[name] = time.perf_counter() - t0
+            lines = so.splitlines()
+            log(f"path 17 python3 examples/{name}: exit {p.returncode}, "
+                f"{out[name]:.1f} s wall ({card}):")
+            for line in lines[:12]:
+                log(f"    {line}")
+            if p.returncode != 0:
+                raise SystemExit(f"path 17: examples/{name} exited "
+                                 f"{p.returncode}:\n{se[-3000:]}")
+            for want in EXAMPLES[name]:
+                if not any(want in line for line in lines):
+                    raise SystemExit(f"path 17: examples/{name} printed no "
+                                     f"line with {want!r}")
+    finally:
+        for _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def examples_path(torch, models, counters, card):
+    """Path 17 (2-4): each example's ``main(device="cuda")`` in this
+    process, held against a reference on the same inputs with TF32 off:
+    classify's logits against the float32 executor on the same dequantized
+    weights (max|d|/max|y| <= 0.05, the top-5 ids equal where the gap
+    decides them); detect's heads (1e-4 of each head's max|y|), score
+    filter and detections against ``main(device="cpu")``; the tiled mask
+    against ``main(device="cpu")`` (1e-4); 32 served answers against
+    ``net(x)`` at b1 (1e-4 each), with ``stats()`` adding up and no
+    spatial probe; the zoo package's ``.pla`` round trip and one forward.
+    No stage64, stagen or dense_q launch over the whole path: the JAX
+    package runs no Pallas kernel on these configurations."""
+    from planer_tpu_torch.models import yolo_post
+    from planer_tpu_torch.models.eval import synthetic_images
+    from planer_tpu_torch.runtime.serving import ServingEngine
+    from planer_tpu_torch.utils import zoo
+    from planer_tpu_torch.utils.tile import grid_slice
+    for c in counters:
+        c.clear()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        # classify: weight-only int8, bf16, against the float32 executor
+        ex = load_example("torch_classify_resnet.py")
+        t0 = time.perf_counter()
+        logits = ex.main("cuda")
+        t_main = time.perf_counter() - t0
+        net = models.resnet18(device="cuda")
+        net.quantize("int8").astype_compute("bfloat16")
+        x = next(synthetic_images(1, (3, 224, 224), seed=7, batch=1))
+        net(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net(x)
+        t_fwd = time.perf_counter() - t0
+        ref = net(x, engine="oracle")[0]
+        rel = float(np.abs(logits - ref).max() / np.abs(ref).max())
+        decided, bad = top5_decided(logits, ref)
+        log(f"path 17 classify: logits vs float32 executor max|d|/max|y| "
+            f"{rel:.6g} (<= 0.05), top-5 {np.argsort(-logits)[:5].tolist()}"
+            f", ranks decided {decided}; main() {1e3 * t_main:.1f} ms, "
+            f"warm forward {1e3 * t_fwd:.2f} ms on the host clock ({card})")
+        if not np.isfinite(logits).all() or logits.shape != (1000,) \
+                or rel > 0.05 or bad:
+            raise SystemExit(f"path 17 classify: rel {rel}, top-5 ranks "
+                             f"{bad} differ")
+        out["classify"] = {"rel": rel, "decided": decided,
+                           "main_ms": 1e3 * t_main, "fwd_ms": 1e3 * t_fwd}
+        del net
+
+        # detect: raw heads at 416, against the CPU run
+        ex = load_example("torch_detect_yolov3.py")
+        t0 = time.perf_counter()
+        dets = ex.main("cuda", DETECT_SIZE)
+        t_main = time.perf_counter() - t0
+        dets_cpu = ex.main("cpu", DETECT_SIZE)
+        img = next(synthetic_images(1, (3, DETECT_SIZE, DETECT_SIZE), seed=3,
+                                    batch=1))
+        heads = models.yolov3(device="cuda")(img)
+        heads_cpu = models.yolov3(device="cpu")(img)
+        hrel = [float(np.abs(a - b).max() / np.abs(b).max())
+                for a, b in zip(heads, heads_cpu)]
+        t0 = time.perf_counter()
+        _, cands = yolo_post.detect(lambda _: heads, img,
+                                    conf_thresh=DETECT_CONF,
+                                    return_candidates=True)
+        t_host = time.perf_counter() - t0
+        _, cands_cpu = yolo_post.detect(lambda _: heads_cpu, img,
+                                        conf_thresh=DETECT_CONF,
+                                        return_candidates=True)
+        n_filtered, fprob = filtered_agree(
+            yolo_post.decode_heads(heads)[0],
+            yolo_post.decode_heads(heads_cpu)[0])
+        n_cmp, n_out, dprob = detections_agree(dets[0], dets_cpu[0],
+                                               cands_cpu[0])
+        log(f"path 17 detect: heads max|d|/max|y| vs the CPU run "
+            f"{[f'{v:.3g}' for v in hrel]} (<= 1e-4), max|y| "
+            f"{[f'{float(np.abs(h).max()):.4g}' for h in heads_cpu]}; "
+            f"{n_filtered} of {yolo_post.decode_heads(heads_cpu).shape[1]} "
+            f"boxes pass the score filter, {len(cands_cpu[0])} the size "
+            f"filter; {len(dets[0])} detections on the card, "
+            f"{len(dets_cpu[0])} on the CPU, {n_cmp} compared, {n_out} left "
+            f"out near a threshold; main() {1e3 * t_main:.1f} ms, detect's "
+            f"host part {1e3 * t_host:.2f} ms over {len(cands[0])} "
+            f"candidates on the host clock ({card})")
+        if max(hrel) > 1e-4 or fprob or dprob or len(dets) != 1:
+            raise SystemExit(f"path 17 detect: heads {hrel}, {fprob + dprob}")
+        out["detect"] = {"heads": hrel, "filtered": n_filtered,
+                         "dets": len(dets[0]), "main_ms": 1e3 * t_main,
+                         "host_ms": 1e3 * t_host}
+
+        # segment: UNet tiled over 700 x 900, against the CPU run
+        ex = load_example("torch_segment_unet_tiled.py")
+        t0 = time.perf_counter()
+        mask = ex.main("cuda")
+        t_main = time.perf_counter() - t0
+        mask_cpu = ex.main("cpu")
+        wins = len(grid_slice(700, 900, 256, 256, 24))
+        mrel = float(np.abs(mask - mask_cpu).max() / np.abs(mask_cpu).max())
+        log(f"path 17 segment: mask {mask.shape}, max|d|/max|y| vs the CPU "
+            f"run {mrel:.3g} (<= 1e-4); main() {1e3 * t_main:.1f} ms for "
+            f"{wins} windows of 256 on the host clock ({card})")
+        if mask.shape != (700, 900) or not np.isfinite(mask).all() \
+                or mrel > 1e-4:
+            raise SystemExit(f"path 17 segment: {mask.shape}, rel {mrel}")
+        out["segment"] = {"rel": mrel, "windows": wins,
+                          "main_ms": 1e3 * t_main}
+
+        # serve: 32 requests, answers against net(x) at b1
+        ex = load_example("torch_serve_continuous.py")
+        rng = np.random.default_rng(17)
+        imgs = [rng.standard_normal((3, 64, 64)).astype(np.float32)
+                for _ in range(32)]
+        probes = []
+        probe = ServingEngine._spatial_signature
+        ServingEngine._spatial_signature = \
+            lambda self, shape: probes.append(shape) or probe(self, shape)
+        try:
+            t0 = time.perf_counter()
+            answers, stats = ex.main("cuda", imgs)
+            t_main = time.perf_counter() - t0
+        finally:
+            ServingEngine._spatial_signature = probe
+        net = models.resnet18(num_classes=100, device="cuda")
+        srel = [float(np.abs(a - r).max() / np.abs(r).max())
+                for a, r in zip(answers, (net(im[None])[0] for im in imgs))]
+        rows = stats["requests"] / max(1e-9, 1 - stats["pad_fraction"])
+        log(f"path 17 serve: {len(answers)} answers, max|d|/max|y| vs net(x)"
+            f" at b1 max {max(srel):.3g} (<= 1e-4); stats {stats}; "
+            f"{len(probes)} spatial probes; main() {1e3 * t_main:.1f} ms on "
+            f"the host clock ({card})")
+        if len(answers) != 32 or max(srel) > 1e-4 or probes \
+                or stats["requests"] != 32 \
+                or not 32 <= round(rows) <= 8 * stats["batches"]:
+            raise SystemExit(f"path 17 serve: {len(answers)} answers, rel "
+                             f"{max(srel)}, {len(probes)} probes, {stats}")
+        out["serve"] = {"rel": max(srel), "stats": stats,
+                        "main_ms": 1e3 * t_main}
+        del net
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+
+    # the zoo package: the .pla round trip in a cache dir of its own
+    import tempfile
+    old_root = zoo.root
+    with tempfile.TemporaryDirectory() as work:
+        zoo.root = work
+        try:
+            pkg = load_example("torch_planer_zoo_example")
+            zoo_net = pkg.main("cuda")
+            pla = os.path.join(work, "torch_planer_zoo_example",
+                               "resnet18_tiny.pla")
+            ref_w = models.resnet18(num_classes=10, device="cpu").weights
+            same = len(ref_w) == len(zoo_net.weights) and all(
+                np.array_equal(np.asarray(a), np.asarray(b))
+                for a, b in zip(zoo_net.weights, ref_w))
+            y = pkg.predict(next(synthetic_images(1, (3, 64, 64), seed=5,
+                                                  batch=1)))
+        finally:
+            zoo.root = old_root
+    log(f"path 17 zoo: {pla} read back on {zoo_net.device}, "
+        f"{len(ref_w)} weight arrays array-equal to resnet18(num_classes="
+        f"10): {same}; one forward {y.shape}")
+    if not same or y.shape != (1, 10) or not np.isfinite(y).all() \
+            or zoo_net.device.type != "cuda":
+        raise SystemExit("path 17 zoo: the round trip or the forward failed")
+    launches = {k: v for c in counters for k, v in c.items()}
+    check_counts("path 17 stage64, stagen and dense_q launches", launches, {})
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch / "
                                  "CUDA port on one NVIDIA card.")
@@ -2522,6 +2854,11 @@ def main():
         p16 = dp_serving(torch, pt, net, synthetic_images, card, work)
     p16m = mesh_paths(torch, pt, models, net, requests, st, sg, card)
 
+    # ----------------------------------------- path 17: the user examples
+    p17 = {"scripts_s": run_examples(card)}
+    p17.update(examples_path(torch, models, [st.LAUNCHES, sg.LAUNCHES,
+                                             tg.LAUNCHES], card))
+
     # ---------------------------------------------------- kernel table
     n = 64
     stem_bytes = n * 3 * 224 * 224 + 64 * 147 + 64 * 4 * 4 + n * 64 * 56 * 56
@@ -2650,6 +2987,12 @@ def main():
         f"{p16m['leg'][0]:.6g}, steps (sharded, unsharded) "
         f"{p16m['steps']} ms; UNet max|d| {p16m['unet']} (printed, no "
         f"claim)")
+    log(f"path 17 (examples): scripts {p17['scripts_s']} s; classify rel "
+        f"{p17['classify']['rel']:.6g}, detect heads {p17['detect']['heads']}"
+        f" ({p17['detect']['dets']} detections, {p17['detect']['filtered']} "
+        f"past the score filter), segment rel {p17['segment']['rel']:.3g}, "
+        f"serve rel {p17['serve']['rel']:.3g} in "
+        f"{p17['serve']['stats']['batches']} batches (printed, no claim)")
     log(f"legs: plain-stage p99 {leg1[0]:.6g}; executor p99 {leg3[0]:.6g}; "
         f"path 2 plain p99 {leg1_50[0]:.6g}, fuse='all' executor gap p99 "
         f"{gap50[0]:.6g}, default-fuse executor p99 {leg3_50[0]:.6g}; "

@@ -6,7 +6,8 @@ directory (``build/planer_tpu_torch`` at the repository root, or
 ``$PLANER_TORCH_BUILD_DIR``), under a file name that carries a digest of the
 source and the flags, so a changed source rebuilds and an unchanged one
 loads from disk.  There is no fallback: a failed build raises with the
-compiler's output (the JAX package falls back to numpy quietly).  The numpy
+compiler's output (the JAX package falls back to numpy quietly), and
+``available()`` only reports whether the library builds and loads.  The numpy
 versions, ``models.yolo_post._nms_numpy`` and ``score_filter_numpy`` here,
 are what the tests hold the native code against.
 """
@@ -21,7 +22,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["nms", "score_filter", "score_filter_numpy", "load"]
+__all__ = ["nms", "score_filter", "score_filter_numpy", "load", "available"]
 
 SRC = Path(__file__).resolve().with_name("nms.cpp")
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
@@ -71,6 +72,17 @@ def load() -> ctypes.CDLL:
             ip, fp]
         _lib = lib
     return _lib
+
+
+def available() -> bool:
+    """Whether the library builds and loads (False where ``g++`` is missing
+    or fails).  A query only: ``nms`` and ``score_filter`` raise instead of
+    falling back."""
+    try:
+        load()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _fptr(a):

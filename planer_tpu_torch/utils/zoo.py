@@ -1,5 +1,6 @@
 """Model zoo: the local cache, markdown manifests, download — the port's
-copy of ``planer_tpu/utils/zoo.py`` without its online catalog.
+copy of ``planer_tpu/utils/zoo.py``, whose downloads do not resolve names
+through its online catalog.
 
 ``~/.planer_zoo`` cache, markdown-table file manifests (``get_source``),
 ``download``/``downloads`` with a progress callback, and ``Model()``/
@@ -7,6 +8,7 @@ copy of ``planer_tpu/utils/zoo.py`` without its online catalog.
 source/list_source/download and auto-load.  A manifest row's URL must carry
 a scheme (``http://``, ``file://``, anything ``urllib`` opens); a bare name
 is not resolved through a catalog: put the file into the cache dir instead.
+``planer_catlog()`` still reads the catalog at ``CATALOG_URL``, on request.
 
 Unlike the JAX package's module, importing this one creates no directory:
 the cache dir is made when a download first writes into it.
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import importlib
 import inspect
+import json
 import os
 import pathlib
 import re
@@ -22,9 +25,11 @@ import sys
 import urllib.request
 
 __all__ = ["root", "Model", "load", "download", "downloads", "source",
-           "list_source", "get_source"]
+           "list_source", "get_source", "planer_catlog"]
 
 root = str(pathlib.Path.home()) + "/.planer_zoo"
+
+CATALOG_URL = "http://planer.imagepy.org/catlog.txt"
 
 
 def progress(done: int, total: int, width: int = 30):
@@ -56,6 +61,15 @@ def download(url: str, path: str, info=print, progress=progress,
                 progress(int(100 * got / total), 100)
     progress(100, 100)
     os.replace(tmp, path)
+
+
+def planer_catlog() -> dict:
+    """The catalog at ``CATALOG_URL`` (a JSON object of short names and
+    download URLs).  Only this call reads it: ``downloads`` never does."""
+    req = urllib.request.Request(CATALOG_URL,
+                                 headers={"User-Agent": "Mozilla/5.0"})
+    with urllib.request.urlopen(req) as resp:
+        return json.loads(resp.read())
 
 
 def source(mroot: str, lst: list) -> list:

@@ -2,6 +2,7 @@
 the profiler (cost report, op histogram, trace scopes), the executor's
 per-op timer, ``Config``, the DOT plot, the zoo (on ``tmp_path`` and
 ``file://`` URLs, no network) and the real-weight hook."""
+import json
 import os
 import sys
 
@@ -205,6 +206,23 @@ def test_zoo_bare_name_names_the_cache_dir(tmp_path):
     (mroot / "w.pla").write_bytes(b"x")
     zoo.downloads(str(mroot), [list(r) for r in rows])
     assert zoo.source(str(mroot), [list(r) for r in rows])[0][2] is True
+
+
+def test_planer_catlog_reads_the_catalog_url(tmp_path, monkeypatch):
+    """``planer_catlog()`` reads the JSON catalog at ``CATALOG_URL`` as the
+    JAX package's does (here a ``file://`` URL: no network), and
+    ``downloads`` still does not resolve a bare name through it."""
+    cat = {"resnet18": "file:///models/resnet18.pla", "unet": "x"}
+    path = tmp_path / "catlog.txt"
+    path.write_text(json.dumps(cat))
+    monkeypatch.setattr(zoo, "CATALOG_URL", path.as_uri())
+    monkeypatch.setattr(jzoo, "CATALOG_URL", path.as_uri())
+    assert zoo.planer_catlog() == jzoo.planer_catlog() == cat
+    assert "planer_catlog" in zoo.__all__
+    monkeypatch.setattr(zoo, "planer_catlog", lambda: pytest.fail(
+        "downloads read the catalog"))
+    with pytest.raises(FileNotFoundError):
+        zoo.downloads(str(tmp_path / "cache"), [["w.pla", True, "resnet18"]])
 
 
 def test_load_state_and_real_weight_hook(tmp_path, monkeypatch):

@@ -431,3 +431,23 @@ def test_failed_nms_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no-such-compiler not found"):
         native.score_filter(np.zeros((1, 9), np.float32), 0.5)
     assert native._lib is None
+
+
+def test_available_reports_the_build(monkeypatch, tmp_path):
+    """``available()`` is a query: True where the library builds and loads,
+    False where the source does not compile or the compiler is missing;
+    ``nms`` and ``score_filter`` raise there all the same."""
+    assert native.available() is True
+    bad = tmp_path / "nms.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "SRC", bad)
+    monkeypatch.setenv("PLANER_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    assert native.available() is False
+    with pytest.raises(RuntimeError, match="building nms.cpp failed"):
+        native.nms(np.zeros((1, 4), np.float32), np.ones(1, np.float32))
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
+    assert native.available() is False
+    with pytest.raises(RuntimeError, match="no-such-compiler not found"):
+        native.score_filter(np.zeros((1, 9), np.float32), 0.5)
+    assert native._lib is None and "available" in native.__all__
