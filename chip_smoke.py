@@ -134,7 +134,9 @@
    buckets 1-32, 5 ms delay, the 224 spatial bucket, warm-up) and its HTTP
    front end: 8 closed-loop clients x 12 requests alternating 224 x 224 and
    200 x 210 images, a burst of 32, 4 singles 20 ms apart, 16 POST /predict
-   from 4 threads, then /stats and /health.  Every answer against
+   from 4 threads, then /stats and /health.  Warm-up must leave a
+   captured entry for every bucket (printed with the peak device memory
+   since the engine's start).  Every answer against
    ``Net.__call__`` at b1 on the same padded image (p99 <= 0.02, argmax
    equal on decisive answers), the stats adding up to 148 requests, 1 stem
    and 2 block launches per executed batch (warm-up included), no
@@ -179,6 +181,28 @@
    stage64, stagen or dense_q launch over the path (the JAX package runs
    no Pallas kernel on these configurations); wall times on the host clock
    printed.
+
+23. path 18, right after the main path: the compile step.  The main
+   path's net gets a fresh program; at batch 1, 8 and 64 the first call
+   takes a new entry, warms up (1 stem + 2 block launches) and captures a
+   CUDA graph; two later calls replay (their launches added from the
+   capture's delta) and, with the first, are bit-identical to the eager
+   loop ``Program._run``.  Under torch.profiler one call launches 1
+   stem_kernel and 2 block_kernel, as its ``LAUNCHES`` delta says, and a
+   bare replay as many kernels as the graph has kernel nodes.  With the
+   plain overrides the program takes a new entry that launches no stage64
+   kernel and whose text names the plain versions; back on ``{}`` it
+   reuses its entry.  An answer handed out is unchanged by a later replay
+   with other images.  Printed, not claimed: capture ms and kernel nodes
+   per batch, the b1 and b64 steps of the replay against ``_run`` (CUDA
+   events and the host clock).
+
+Every path runs through the program's compiled entries: the first call at
+a signature warms up and captures, later calls replay.  Where a path's
+answers are driven through ``Net.__call__`` and ``run``, each replay is
+held against ``Program._run`` on the same batch: bit-identical on the
+integer paths (the main path, paths 3, 5, 11 and 12), elsewhere printed and
+held to leg 1's bound.
 
 ``python3 chip_smoke.py --profile DIR`` adds a torch.profiler pass over the
 steps of the main path, of both ResNet-50 programs of path 2 and of paths
@@ -700,7 +724,7 @@ def capture_stages(sg, net, x):
 
     prog = net.program
     sg.stagen, prog.op_overrides = spy, PLAIN
-    prog(x)
+    prog._run(x)             # eager: the spy sees each stage once
     sg.stagen, prog.op_overrides = orig, {}
     return seen
 
@@ -880,17 +904,23 @@ def flat(y):
                            for h in outputs(y)], 1)
 
 
-def drive(net, requests, counters, shapes=lambda b: [(b, 1000)]):
+def drive(net, requests, counters, shapes=lambda b: [(b, 1000)],
+          label="", same=False):
     """Answer every request through Net.__call__ and run(), with the launch
     and fall-off counters set to 0 just before; returns the answers, the
     number of forwards and a copy of each counter just after.  ``shapes(b)``
-    lists the output shapes a batch of b must give."""
+    lists the output shapes a batch of b must give.  The second call at a
+    batch replays the program's compiled entry; after the counters are
+    read, each replay is held against the eager loop (``Program._run``) on
+    the same batch: bit-identical where ``same`` (the integer paths), else
+    printed and held to leg 1's bound (p99 <= 0.02)."""
     for c in counters:
         c.clear()
-    answers, forwards = {}, 0
+    answers, replays, forwards = {}, {}, 0
     for b, x in requests.items():
         answers[b] = net(x)                        # Net.__call__
         again = net.run(None, {"x": x})            # InferenceSession.run
+        replays[b] = again
         forwards += 2
         outs = outputs(answers[b])
         if [o.shape for o in outs] != list(shapes(b)) \
@@ -900,7 +930,22 @@ def drive(net, requests, counters, shapes=lambda b: [(b, 1000)]):
         if len(again) != len(outs) or not all(
                 np.array_equal(a, o) for a, o in zip(again, outs)):
             raise SystemExit(f"batch {b}: run() and __call__ disagree")
-    return answers, forwards, [dict(c) for c in counters]
+    counts = [dict(c) for c in counters]
+    prog = net.program
+    pairs = [(flat(replays[b]), flat([t.cpu().numpy() for t in
+                                      outputs(prog._run(x))]))
+             for b, x in requests.items()]
+    identical = all(np.array_equal(a, r) for a, r in pairs)
+    log(f"{label or 'main path'} replay vs _run: "
+        f"{'bit-identical' if identical else 'NOT bit-identical'} at "
+        f"b{list(requests)}")
+    if not identical:
+        if same:
+            raise SystemExit(f"{label}: the replay is not bit-identical to "
+                             f"the eager loop")
+        agreement(pairs, f"{label} replay vs _run (cuDNN under capture)",
+                  0.02, need_margin_agree=False, logits=False)
+    return answers, forwards, counts
 
 
 def check_counts(label, got, want):
@@ -938,6 +983,164 @@ def step_times(torch, net, requests, label, card, batches=(1, 64)):
         log(f"{label} step b{b}: {out[b]:.4f} ms, {1e3 * b / out[b]:.1f} "
             f"img/s (program on device tensors; CUDA events; {card})")
     return out
+
+
+# --------------------------------------------------------------------------
+# path 18: the compile step (per-signature entries replayed as CUDA graphs)
+# --------------------------------------------------------------------------
+
+STAGE64_ONE = {"stem_pool_requant": 1, "basic_block": 1,
+               "basic_block_last": 1}
+
+
+def kernel_events(torch, prof):
+    """(kernel names, stem_kernel count, block_kernel count) of a profile's
+    device kernels: copies and fills left out, those a graph's memcpy and
+    memset nodes run as driver kernels (``memcpy32_post``) too."""
+    import re
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.lower().startswith(("memcpy", "memset"))]
+    count = lambda k: sum(bool(re.search(rf"\b{k}\b", n)) for n in names)
+    return names, count("stem_kernel"), count("block_kernel")
+
+
+def host_ms(torch, fn, reps, warmup=3):
+    """Mean milliseconds per call of fn on the host clock, the device
+    drained before and after."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def compile_path(torch, net, requests, st, card):
+    """Path 18: the main path's compile step.  On a fresh program, the
+    first call at each of b1, b8 and b64 takes a new entry, warms up (1
+    stem + 2 block launches) and captures; later calls replay (1 + 2 each,
+    added from the capture's delta), and every answer is bit-identical to
+    the eager loop (``Program._run``).  Under torch.profiler one call
+    launches 1 stem_kernel and 2 block_kernel, as its LAUNCHES delta says,
+    and one bare replay launches as many kernels as the graph holds
+    kernel nodes.  With ``op_overrides = PLAIN`` the program takes a new
+    entry that launches no stage64 kernel; back on ``{}`` it reuses its
+    entry.  A replay with other images leaves an earlier answer (a device
+    tensor) unchanged.  Printed, not claimed: capture ms, b1 and b64 step
+    times of the replay against the eager loop (CUDA events and the host
+    clock)."""
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+    net._invalidate()                      # a fresh program, no entries
+    prog = net.program
+    res = {"capture_ms": {}, "kernel_nodes": {}, "launches": Counter()}
+    for b, x in requests.items():
+        n0 = len(prog._cache)
+        st.LAUNCHES.clear()
+        first = net(x)                     # compiles: warm run + capture
+        entry = prog._entry(x)
+        if len(prog._cache) != n0 + 1 or entry.graph is None:
+            raise SystemExit(f"path 18 b{b}: no captured entry "
+                             f"({len(prog._cache)} entries)")
+        check_counts(f"path 18 b{b} first call (warm run) launches",
+                     dict(st.LAUNCHES), STAGE64_ONE)
+        res["launches"].update(st.LAUNCHES)
+        st.LAUNCHES.clear()
+        again = net(x)                     # replays
+        (ran,) = net.run(None, {"x": x})
+        check_counts(f"path 18 b{b} two replays' launches",
+                     dict(st.LAUNCHES), {k: 2 for k in STAGE64_ONE})
+        res["launches"].update(st.LAUNCHES)
+        if len(prog._cache) != n0 + 1:
+            raise SystemExit(f"path 18 b{b}: a replay took a new entry")
+        eager = prog._run(x).cpu().numpy()
+        for what, y in (("first call", first), ("replay", again),
+                        ("run() replay", ran)):
+            if not np.array_equal(y, eager):
+                raise SystemExit(f"path 18 b{b}: the {what} is not "
+                                 f"bit-identical to _run")
+        res["capture_ms"][b] = entry.capture_ms
+        res["kernel_nodes"][b] = entry.kernel_nodes
+        log(f"path 18 b{b}: captured in {entry.capture_ms:.3f} ms, "
+            f"{entry.kernel_nodes} kernel nodes; first call, replay and "
+            f"run() bit-identical to _run ({card})")
+    x1 = requests[1]
+    entry = prog._entry(x1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        st.LAUNCHES.clear()
+        prog(x1)
+        torch.cuda.synchronize()
+    delta = dict(st.LAUNCHES)
+    _, stems, blocks = kernel_events(torch, prof)
+    log(f"path 18 one call under torch.profiler: {stems} stem_kernel, "
+        f"{blocks} block_kernel; LAUNCHES delta {delta}")
+    if (stems, blocks) != (1, 2) or delta != STAGE64_ONE:
+        raise SystemExit("path 18: a replay's launches are not 1 stem + 2 "
+                         "blocks, or not its LAUNCHES delta")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        entry.graph.replay()
+        torch.cuda.synchronize()
+    names, stems, blocks = kernel_events(torch, prof)
+    log(f"path 18 one bare replay: {len(names)} kernels ({stems} "
+        f"stem_kernel, {blocks} block_kernel), the graph's kernel nodes "
+        f"{entry.kernel_nodes}")
+    if (len(names), stems, blocks) != (entry.kernel_nodes, 1, 2):
+        raise SystemExit("path 18: a bare replay did not launch the "
+                         "captured kernels")
+    res["profiled_kernels"] = len(names)
+    # leg 1's programs: PLAIN takes a new entry with no stage64 launch
+    x8 = requests[8]
+    n0 = len(prog._cache)
+    prog.op_overrides = PLAIN
+    try:
+        st.LAUNCHES.clear()
+        yp = [prog(x8).cpu().numpy() for _ in range(2)]
+        plain_text = prog.lowered_text(x8)
+        check_counts("path 18 PLAIN entry stage64 launches",
+                     dict(st.LAUNCHES), {})
+        if len(prog._cache) != n0 + 1:
+            raise SystemExit("path 18: PLAIN did not take a new entry")
+    finally:
+        prog.op_overrides = {}
+    yk = prog(x8).cpu().numpy()
+    if len(prog._cache) != n0 + 1:
+        raise SystemExit("path 18: back on {} the program took a new entry")
+    stage_line = [ln for ln in plain_text.splitlines()
+                  if ": stage64 [" in ln]
+    log(f"path 18 PLAIN entry: {stage_line}; kernels vs plain "
+        f"{'bit-identical' if np.array_equal(yp[0], yk) else 'differ'}")
+    if not (stage_line and "plain[stem_kernel x1 + block_kernel x2]"
+            in stage_line[0]) or not np.array_equal(yp[0], yp[1]):
+        raise SystemExit("path 18: the PLAIN entry does not run the plain "
+                         "versions")
+    # fresh outputs: a later replay at the same signature with other images
+    xa = requests[64]
+    xb = np.ascontiguousarray(requests[64][::-1])
+    ya = net.forward(xa)
+    keep = ya.clone()
+    yb = net.forward(xb)
+    torch.cuda.synchronize()
+    if not torch.equal(ya, keep) or torch.equal(ya, yb):
+        raise SystemExit("path 18: a later replay changed an earlier answer")
+    log("path 18: an answer handed out is unchanged by a later replay")
+    res["steps"] = {}
+    for b in (1, 64):
+        xd = torch.as_tensor(requests[b], device="cuda")
+        reps = 50 if b == 1 else 20
+        row = {"replay_ms": cuda_ms(lambda: prog(xd), reps, warmup=5),
+               "eager_ms": cuda_ms(lambda: prog._run(xd), reps, warmup=5),
+               "replay_host_ms": host_ms(torch, lambda: prog(xd), reps),
+               "eager_host_ms": host_ms(torch, lambda: prog._run(xd), reps)}
+        res["steps"][b] = row
+        log(f"path 18 step b{b}: replay {row['replay_ms']:.4f} ms, eager "
+            f"{row['eager_ms']:.4f} ms (CUDA events); host clock replay "
+            f"{row['replay_host_ms']:.4f} ms, eager "
+            f"{row['eager_host_ms']:.4f} ms (printed, no claim; {card})")
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -1016,7 +1219,7 @@ def yolo_static_path(torch, models, calibrate, synthetic_images, card,
     requests = {b: next(synthetic_images(b, (3, YOLO_SIDE, YOLO_SIDE),
                                          seed=400 + b, batch=b))
                 for b in (1, 8, 16)}
-    _, fwd, counts = drive(net, requests, counters, yolo_shapes)
+    _, fwd, counts = drive(net, requests, counters, yolo_shapes, "path 8")
     check_counts("path 8 hand-kernel launches and fall-offs",
                  {k: v for c in counts for k, v in c.items()}, {})
     imgs = list(synthetic_images(8, (3, YOLO_SIDE, YOLO_SIDE), seed=29,
@@ -1064,7 +1267,8 @@ def yolo_route_path(torch, models, tops, ev, card, counters, p8, profile):
               iou_hysteresis=0.7)
     tops._PALLAS_CONV1X1 = True
     try:
-        answers, fwd, (lq, *others) = drive(net, req, counters, yolo_shapes)
+        answers, fwd, (lq, *others) = drive(net, req, counters, yolo_shapes,
+                                            "path 9")
         check_counts("path 9 dense_q launches", lq, {"dense_q": 31 * fwd})
         check_counts("path 9 other hand-kernel launches",
                      {k: v for c in others for k, v in c.items()}, {})
@@ -1141,7 +1345,7 @@ def unet_path(torch, models, synthetic_images, card, counters, profile):
     shape = (1, UNET_SIDE, UNET_SIDE)
     req = {1: next(synthetic_images(1, shape, seed=501, batch=1))}
     answers, fwd, counts = drive(net, req, counters,
-                                 lambda b: [(b, *shape)])
+                                 lambda b: [(b, *shape)], "path 10")
     check_counts("path 10 hand-kernel launches and fall-offs",
                  {k: v for c in counts for k, v in c.items()}, {})
     imgs = list(synthetic_images(8, shape, seed=29, batch=4))
@@ -1417,7 +1621,8 @@ def frontend_path(torch, pt, calibrate, synthetic_images, label, path,
     log(f"{label} built: {time.perf_counter() - t0:.1f} s")
     if sum(l.op == "stage64" for l in net.graph.layers) != 1:
         raise SystemExit(f"{label}: the entry stage was not fused")
-    answers, fwd, (launches, falloff) = drive(net, requests, counters)
+    answers, fwd, (launches, falloff) = drive(net, requests, counters,
+                                              label=label, same=True)
     check_counts(f"{label} stage64 launches", launches, {
         "stem_pool_requant": fwd, "basic_block": fwd,
         "basic_block_last": fwd})
@@ -1781,12 +1986,28 @@ def serve_path(torch, net, st, synthetic_images, card):
     st.LAUNCHES.clear()
     st.FALLOFF.clear()
     served = []                                   # (request, answer)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = ServingEngine(net, buckets=SERVE_BUCKETS, max_delay_ms=5,
                         hw_buckets=(224,), warmup=True,
                         example_shape=(3, 224, 224))
     try:
         warm_s = time.perf_counter() - t0
+        prog = net.program
+        warm = [prog._cache.get(prog._key(prog._inputs(
+            [np.zeros((b, 3, 224, 224), np.float32)])))
+            for b in SERVE_BUCKETS]
+        caps = [f"{e.kernel_nodes} kernel nodes in {e.capture_ms:.3f} ms"
+                for e in warm if e is not None and e.graph is not None]
+        log(f"path 14 warm-up: {warm_s:.3f} s, an entry captured for "
+            f"{len(caps)} of buckets {SERVE_BUCKETS} ({', '.join(caps)}), "
+            f"{len(prog._cache)} entries in all; "
+            f"torch.cuda.max_memory_allocated since the engine's start "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB, "
+            f"memory_allocated {torch.cuda.memory_allocated() / 2 ** 20:.1f}"
+            f" MiB ({card})")
+        if not all(e is not None and e.graph is not None for e in warm):
+            raise SystemExit("path 14: warm-up left a bucket uncaptured")
 
         def client(t):                            # (a) closed loop
             return [(x, eng.submit(x).result(timeout=120))
@@ -2610,7 +2831,8 @@ def main():
     requests = {b: next(synthetic_images(b, (3, 224, 224), seed=100 + b,
                                          batch=b)) for b in (1, 8, 64)}
     answers, forwards, (launches, falloff) = drive(
-        net, requests, [st.LAUNCHES, st.FALLOFF])
+        net, requests, [st.LAUNCHES, st.FALLOFF], label="main path",
+        same=True)
     check_counts("main path stage64 launches", launches, {
         "stem_pool_requant": forwards, "basic_block": forwards,
         "basic_block_last": forwards})
@@ -2625,6 +2847,9 @@ def main():
     if args.profile:
         profile_steps(torch, net.program, requests, card, args.profile)
 
+    # ------------------------------------- path 18: the compile step
+    p18 = compile_path(torch, net, requests, st, card)
+
     # -------------------------------------- stagen kernel, paths 2 and 3
     from planer_tpu_torch.ops.kernels import stagen as sg
     nets = {m: build_net(models, calibrate_act_scales, synthetic_images, m,
@@ -2638,7 +2863,8 @@ def main():
 
     # path 2: ResNet-50, fuse="all", batch 1, 8 and 64
     net50 = nets["resnet50"]
-    answers, fwd2, (l64, f64, lgn2, fgn) = drive(net50, requests, counters)
+    answers, fwd2, (l64, f64, lgn2, fgn) = drive(net50, requests, counters,
+                                                 label="path 2")
     r50 = [r for name, r in srows.items()
            if name.startswith("stagen[resnet50 ")]
     check_counts("path 2 stage64 launches", l64,
@@ -2653,7 +2879,8 @@ def main():
                       "path 2 fuse='all' vs float32 executor (printed, not "
                       "gated: the fused-stage arithmetic)", float("inf"),
                       need_margin_agree=False)
-    _, fwd2d, (l64d, f64d) = drive(net50d, requests, counters[:2])
+    _, fwd2d, (l64d, f64d) = drive(net50d, requests, counters[:2],
+                                   label="path 2 default fuse")
     check_counts("path 2 default-fuse stage64 launches", l64d,
                  {"stem_pool_requant[bf16]": fwd2d})
     check_counts("path 2 default-fuse stage64 falloff", f64d, {})
@@ -2673,7 +2900,8 @@ def main():
     # path 3: ResNet-18, fuse="all", batch 1 and 64
     net18 = nets["resnet18"]
     req3 = {b: requests[b] for b in (1, 64)}
-    answers3, fwd3, (l64, f64, lgn3, fgn) = drive(net18, req3, counters)
+    answers3, fwd3, (l64, f64, lgn3, fgn) = drive(net18, req3, counters,
+                                                  label="path 3", same=True)
     r18 = [r for name, r in srows.items()
            if name.startswith("stagen[resnet18 ")]
     check_counts("path 3 stage64 launches", l64, {
@@ -2700,7 +2928,8 @@ def main():
     net448 = nets["resnet18@448"]
     req7 = {b: next(synthetic_images(b, (3, 448, 448), seed=300 + b,
                                      batch=b)) for b in (1, 64)}
-    answers7, fwd7, (l64, f64, lgn7, fgn) = drive(net448, req7, counters)
+    answers7, fwd7, (l64, f64, lgn7, fgn) = drive(net448, req7, counters,
+                                                  label="path 7")
     r448 = [r for name, r in srows.items()
             if name.startswith("stagen[resnet18@448 ")]
     check_counts("path 7 stage64 launches", l64, {})
@@ -2727,7 +2956,8 @@ def main():
     counters4 = [tg.LAUNCHES, st.LAUNCHES, sg.LAUNCHES]
     tops._PALLAS_CONV1X1 = True
     try:
-        answers4, fwd4, (lq4, l64_4, lgn4) = drive(net4, requests, counters4)
+        answers4, fwd4, (lq4, l64_4, lgn4) = drive(net4, requests, counters4,
+                                                   label="path 4")
         check_counts("path 4 dense_q launches", lq4, {"dense_q": 26 * fwd4})
         check_counts("path 4 stage64 and stagen launches", {**l64_4, **lgn4},
                      {})
@@ -2777,7 +3007,8 @@ def main():
         st.SPLIT, st.REQUANT = split, requant
         try:
             answers5, fwd5, (l5[form], f5) = drive(
-                net, req5, [st.LAUNCHES, st.FALLOFF])
+                net, req5, [st.LAUNCHES, st.FALLOFF],
+                label=f"path 5 ({form})", same=True)
             check_counts(f"path 5 ({form}) stage64 launches", l5[form],
                          {k: fwd5 for k in trunc_keys})
             check_counts(f"path 5 ({form}) stage64 falloff", f5, {})
@@ -2799,7 +3030,8 @@ def main():
     log(f"resnet50 weight-only fp8 built: {time.perf_counter() - t0:.1f} s")
     tops._PALLAS_CONV1X1 = True
     try:
-        answers6, fwd6, (lq6, l64_6, lgn6) = drive(net6, requests, counters4)
+        answers6, fwd6, (lq6, l64_6, lgn6) = drive(net6, requests, counters4,
+                                                   label="path 6")
         check_counts("path 6 dense_q launches", lq6,
                      {"dense_q[fp8]": 26 * fwd6})
         check_counts("path 6 stage64 and stagen launches", {**l64_6, **lgn6},
@@ -2908,6 +3140,7 @@ def main():
             row["launches_path12"] = p12["launches"][name]
             row["launches_path14"] = p14["launches"][name]
             row["launches_path16"] = p16["launches"][name]
+            row["launches_path18"] = p18["launches"][name]
         rows.append(row)
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
@@ -2987,6 +3220,11 @@ def main():
         f"{p16m['leg'][0]:.6g}, steps (sharded, unsharded) "
         f"{p16m['steps']} ms; UNet max|d| {p16m['unet']} (printed, no "
         f"claim)")
+    log(f"path 18 (compile step): capture ms {p18['capture_ms']}, kernel "
+        f"nodes {p18['kernel_nodes']}; steps replay / eager (CUDA events) "
+        + "; ".join(f"b{b} {r['replay_ms']:.4f} / {r['eager_ms']:.4f} ms"
+                    for b, r in p18["steps"].items())
+        + " (printed, no claim)")
     log(f"path 17 (examples): scripts {p17['scripts_s']} s; classify rel "
         f"{p17['classify']['rel']:.6g}, detect heads {p17['detect']['heads']}"
         f" ({p17['detect']['dets']} detections, {p17['detect']['filtered']} "

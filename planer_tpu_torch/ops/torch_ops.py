@@ -101,9 +101,41 @@ def to_dtype(name) -> torch.dtype | None:
     return getattr(torch, str(name))
 
 
-@functools.lru_cache(maxsize=4096)
+# device constants made once and kept (0-dim scalars, lookup tables,
+# index vectors); a CUDA graph replays them, so none may be made during a
+# capture, which would record the fill and never run it
+_CONSTS: dict = {}
+
+
+def _capturing(device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _kept(key, device, make):
+    t = _CONSTS.get(key)
+    if t is None:
+        if _capturing(device):
+            raise RuntimeError(
+                f"device constant {key[:2]} first needed inside a CUDA "
+                f"graph capture; the warm run makes every constant the "
+                f"program uses")
+        t = _CONSTS[key] = make()
+    return t
+
+
 def _scalar_cached(v: float, dtype: torch.dtype, device: torch.device):
-    return torch.full((), v, dtype=dtype, device=device)
+    # keyed by the float's bits: -0.0 and nan are values of their own
+    return _kept(("scalar", v.hex(), dtype, device), device,
+                 lambda: torch.full((), v, dtype=dtype, device=device))
+
+
+def _const(a, device) -> torch.Tensor:
+    """The host array ``a`` on ``device``, made once and kept."""
+    a = np.ascontiguousarray(a)
+    if device.type != "cuda":
+        return torch.as_tensor(a, device=device)
+    return _kept(("array", a.dtype.str, a.shape, a.tobytes(), device), device,
+                 lambda: torch.as_tensor(a, device=device))
 
 
 def scalar(v, like: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -829,7 +861,7 @@ def erf(x):
     reference)."""
     if _modes.get_erf_mode() == "lut":
         idx = _modes.lut_index_f(x.float()).to(torch.int16).long()
-        lut = torch.as_tensor(_modes.ERF_LUT, device=x.device).to(x.dtype)
+        lut = _const(_modes.ERF_LUT, x.device).to(x.dtype)
         return lut[idx]
     return torch.erf(x)
 
@@ -1067,8 +1099,7 @@ def pad(x, pads, constant_value=0.0, mode="constant"):
     for a, (lo, hi) in enumerate(p):
         if lo or hi:
             idx = np.pad(np.arange(x.shape[a]), (lo, hi), mode=np_mode)
-            x = torch.index_select(x, a, torch.as_tensor(idx,
-                                                         device=x.device))
+            x = torch.index_select(x, a, _const(idx, x.device))
     return x
 
 
@@ -1238,18 +1269,17 @@ def _resize_nchw(x, out_hw, scales, mode, coord_mode, nearest_mode):
             n, c = x.shape[:2]
             y = x[:, :, :, None, :, None].expand(n, c, h, rk, w, ck)
             return y.reshape(n, c, oh, ow)
-        ri, ci = (torch.as_tensor(i, dtype=torch.long, device=x.device)
+        ri, ci = (_const(np.asarray(i, np.int64), x.device)
                   for i in (ri, ci))
         return x[..., ri[:, None], ci[None, :]]
     if mode in ("linear", "bilinear"):
         # the lerp weights in x's dtype, as the reference takes them
         rlo, rhi, rf = _rs.linear_plan(h, oh, kh, coord_mode)
         clo, chi, cf = _rs.linear_plan(w, ow, kw, coord_mode)
-        rlo, rhi, clo, chi = (torch.as_tensor(i, dtype=torch.long,
-                                              device=x.device)
+        rlo, rhi, clo, chi = (_const(np.asarray(i, np.int64), x.device)
                               for i in (rlo, rhi, clo, chi))
-        rf = torch.as_tensor(rf.reshape(-1, 1), device=x.device).to(x.dtype)
-        cf = torch.as_tensor(cf, device=x.device).to(x.dtype)
+        rf = _const(rf.reshape(-1, 1), x.device).to(x.dtype)
+        cf = _const(cf, x.device).to(x.dtype)
         rows = x[..., rlo, :] * (1 - rf) + x[..., rhi, :] * rf
         return rows[..., clo] * (1 - cf) + rows[..., chi] * cf
     raise ValueError(f"unsupported resize mode {mode!r}")

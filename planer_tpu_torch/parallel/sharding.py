@@ -217,6 +217,7 @@ def shard_program(net, mesh: Mesh, tp_axis: str = "model",
     prog = _build(net, ShardedProgram, mesh=mesh, tp_axis=tp_axis,
                   batch_axis=batch_axis)
     prog.op_overrides.update(FUSED_OVERRIDES)
+    prog._cache.clear()          # compiled under other overrides
     net._program = prog
     return prog
 
@@ -353,7 +354,11 @@ class ShardedProgram(Program):
     split over ``batch_axis``, model-sharded weights split over
     ``tp_axis`` (see the module docstring).  The float32 executor
     (``_executor``, the host tail, ``cost_analysis``) is the base
-    program's, on the mesh's first device."""
+    program's, on the mesh's first device.  Its entries fold their statics
+    per signature like the base program's but run uncaptured: one CUDA
+    graph cannot hold a program over several devices."""
+
+    _capturable = False
 
     def __init__(self, graph, weights, *, mesh: Mesh, tp_axis="model",
                  batch_axis="data", col_axis=None, **kw):
@@ -408,7 +413,7 @@ class ShardedProgram(Program):
             self._placed[k] = _place(leaf, dev)
         return self._placed[k]
 
-    def _cache(self, ri, d):
+    def _dcache(self, ri, d):
         return self._dcaches.setdefault((ri, d), {})
 
     # ------------------------------------------------------ program steps
@@ -616,7 +621,7 @@ class ShardedProgram(Program):
                 a[0] = _slice(a[0], 1, m, n_model)
             k = kw
             if spec.cached:
-                k = {**kw, "cache": self._cache(ri, (d, m))}
+                k = {**kw, "cache": self._dcache(ri, (d, m))}
             if batch is not None:
                 with tops.logical_batch(batch):
                     out = spec.fn(*a, **k)

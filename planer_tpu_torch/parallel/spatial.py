@@ -48,6 +48,7 @@ def shard_spatial(net, mesh: Mesh, spatial_axis: str = "model",
     prog = _build(net, SpatialProgram, mesh=mesh, tp_axis=None,
                   batch_axis=batch_axis, col_axis=spatial_axis)
     prog.op_overrides.update(FUSED_OVERRIDES)
+    prog._cache.clear()          # compiled under other overrides
     net._program = prog
     return prog
 
@@ -212,7 +213,7 @@ class SpatialProgram(ShardedProgram):
                     else:
                         v = _place(v, dev)
                     a.append(v)
-                k = {**kw, "cache": self._cache(ri, (d, j))} \
+                k = {**kw, "cache": self._dcache(ri, (d, j))} \
                     if spec.cached else kw
                 row.append(spec.fn(*a, **k))
             outs.append(row)
@@ -259,7 +260,7 @@ class SpatialProgram(ShardedProgram):
                              if (ri, p) in self._wargs else _place(v, dev))
                 k = {**kw, **route, **local_kw(o0, o1, lo, hi, extra)}
                 if spec.cached:
-                    k["cache"] = self._cache(ri, (d, j))
+                    k["cache"] = self._dcache(ri, (d, j))
                 y = spec.fn(*a, **k)
                 if layer.op == "upsample":
                     y = y[:, :, extra:extra + (o1 - o0)]

@@ -13,11 +13,14 @@ Each opcode has two functions:
 
 ``static_args`` and ``data_dependent`` mean what they mean in the JAX
 package: shape operands that must be host values, ops whose output shape
-depends on values.  ``cached`` ops get a per-application ``cache`` dict
-from the program.  ``conv``, ``dense``, ``stage64`` and ``stagen`` take
-``plain=True`` as an op override (``Program.op_overrides``): the program
-then runs their kernels' plain versions on any device, the reference the
-kernels are held against.
+depends on values.  ``host_args`` are operands an op reads on the host
+when they are static (a pad's constant value): the program hands them over
+as host values, as the JAX tracer hands every static operand, so no op
+reads the device for one (a CUDA graph capture forbids it).  ``cached``
+ops get a per-application ``cache`` dict from the program.  ``conv``,
+``dense``, ``stage64`` and ``stagen`` take ``plain=True`` as an op
+override (``Program.op_overrides``): the program then runs their kernels'
+plain versions on any device, the reference the kernels are held against.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ class OpSpec:
     static_args: tuple[int, ...] = ()
     data_dependent: bool = False
     cached: bool = False
+    host_args: tuple[int, ...] = ()
 
 
 OPS: dict[str, OpSpec] = {}
@@ -118,7 +122,7 @@ _reg("gather", tops.gather)
 _reg("slice", tops.slice_, static_args=(1, 2, 3, 4))
 _reg("expand", tops.expand, static_args=(1,))
 _reg("tile", tops.tile, static_args=(1,))
-_reg("pad", tops.pad, static_args=(1,))
+_reg("pad", tops.pad, static_args=(1,), host_args=(2,))
 _reg("squeeze", tops.squeeze, static_args=(1,))
 _reg("unsqueeze", tops.unsqueeze, static_args=(1,))
 # the int64 shape as a host value; the program records it as a 'shape'

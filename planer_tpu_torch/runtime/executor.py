@@ -10,7 +10,7 @@ correctness oracle of the quantized program and the engine of calibration.
 On a CUDA device it turns TF32 off for both convolutions and matmuls, so
 float32 means float32 (cuDNN convolutions default to TF32).
 
-With ``timed`` set (``Net.timeit("start")`` sets it), ``timer[op]``
+With ``timed`` set (``timeit("start")`` sets it), ``timer[op]``
 accumulates the seconds each opcode took, the reference's per-op-type
 profile.  On a CUDA device the device is drained before each op and after
 it, so the dict holds each op's device time and not the time its launch
@@ -84,9 +84,11 @@ class Executor:
         return v
 
     def run_range(self, env: dict[str, Any], start: int, stop: int,
-                  debug: bool = False,
+                  debug: bool = False, free: bool = True,
                   trace_cb: Callable | None = None) -> dict[str, Any]:
-        """Execute flow edges [start, stop) in place on ``env``."""
+        """Execute flow edges [start, stop) in place on ``env``; with
+        ``free`` drop each value from ``env`` once no later edge reads
+        it."""
         flow = self.graph.flow
         for i in range(start, stop):
             edge = flow[i]
@@ -97,7 +99,7 @@ class Executor:
                 # read the edge dst written by their predecessor
                 src = edge.src if li == 0 else edge.dst
                 args = [self._on_device(env.get(s)) for s in src]
-                if li == len(edge.layers) - 1:
+                if free and li == len(edge.layers) - 1:
                     for s in set(edge.src):
                         if s in env and self.life.get(s, -1) <= i:
                             del env[s]
@@ -121,6 +123,17 @@ class Executor:
                     for name, v in zip(edge.dst, out):
                         env[name] = v
         return env
+
+    def timeit(self, status: str = "start"):
+        """The reference's per-opcode timer: ``"start"`` clears ``timer``
+        and times every later run op by op; ``"end"`` stops and prints
+        it."""
+        if status == "start":
+            self.timer, self.timed = {}, True
+        if status == "end":
+            self.timed = False
+            for k, v in self.timer.items():
+                print(k, v)
 
     def _timed(self, layer, fn, args):
         cuda = self.device.type == "cuda"

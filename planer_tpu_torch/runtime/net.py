@@ -243,13 +243,11 @@ class Net:
         op (device time on the card); ``"end"`` prints it and stops."""
         if status == "start":
             self._timed = True
-            self.oracle.timer, self.oracle.timed = {}, True
+            self.oracle.timeit("start")
         if status == "end":
             self._timed = False
             if self._oracle is not None:
-                self._oracle.timed = False
-            for k, v in self.timer.items():
-                print(k, v)
+                self._oracle.timeit("end")
 
     def cost_analysis(self, *x):
         """{"flops", "bytes accessed"} of the program at these inputs'

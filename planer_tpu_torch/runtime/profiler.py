@@ -8,7 +8,8 @@ counterpart of ``planer_tpu/runtime/profiler.py``.
     at given input shapes (``Program.cost_analysis``) against a card's
     peaks: the roofline bound of one call;
   * ``trace`` — a ``torch.profiler`` context in which the program runs
-    each op under its IR layer name;
+    its compiled entry's list eagerly, each op under its IR layer name
+    (no captured graph replays there);
   * ``op_histogram`` — static per-opcode counts of a graph.
 """
 from __future__ import annotations

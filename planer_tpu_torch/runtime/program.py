@@ -1,31 +1,55 @@
-"""IR -> straight-line torch program: the port's counterpart of
+"""IR -> compiled straight-line torch program: the port's counterpart of
 ``planer_tpu/runtime/tracer.py``.
 
-PyTorch runs eagerly, so there is nothing to trace or compile; the program
-keeps the tracer's decisions and runs the flow on the device:
+The program keeps the tracer's decisions and its compile step:
 
 1. **Staticness analysis** (``analyze``, the tracer's own): every op
    application is *static* (all inputs derivable from weights and shapes),
    a *shape* read (``shape`` of any tensor: a host value, even where the
    tensor itself is dynamic) or *dynamic*.  Static and shape applications
-   are folded on the host each call and never reach the device; the
-   analysis is per application, not per name.
+   are folded on the host and never reach the device; the analysis is per
+   application, not per name.
 2. **Cut point**: the first application that cannot run with static shapes
    (a data-dependent op, a dynamic shape operand).  The flow from there on
    (the *tail*) runs in the float32 ``Executor`` on the program's device,
    as the JAX package runs it in its numpy executor: seeded with the
    prefix's values (compute-dtype outputs as float32), the static values
    and the weights.
-3. **Run**: dynamic applications call the registry's ``fn`` on device
-   tensors.  Weights consumed dynamically are materialized once
-   (quantization layer hook), cast to the compute dtype where they are
-   floating point, and kept on the device.
+3. **Compile, per input signature** (``_entry``, ``_compile``): the key
+   holds each input's (shape, dtype, device), a snapshot of
+   ``op_overrides``' content and the call-time switches the ops read
+   (``_switches``), so a reassigned or updated overrides dict, or a flipped
+   module flag, never reuses an entry.  The first call at a key walks the
+   flow once: the shape and static records run on the host and their
+   values are kept (the tracer's ``statics``), and every dynamic
+   application is resolved once — its arguments (weights, static values
+   moved to the device, and as host values the operands an op reads on
+   the host, the registry's ``host_args``), its kwargs with the overrides
+   and the compute dtype, its ``cache`` — into a straight-line list of
+   calls.
+   Later calls run that list and fold nothing.
+4. **Run on CUDA**: the first walk is the warm run, on the program's side
+   stream and outside any capture (kernels build, their tables fold, cached
+   constants fill); the list up to the cut is then captured once into a
+   ``torch.cuda.CUDAGraph`` (thread-local capture mode, one memory pool per
+   program), the counterpart of the command buffers XLA runs a compiled
+   program as on a GPU.  Each later call copies its inputs into the
+   graph's static inputs, replays it and returns a fresh device copy of
+   each output; the kernel modules' ``LAUNCHES`` and ``FALLOFF`` get the
+   delta the capture recorded, so they keep counting what the card ran.  A
+   capture that fails raises with the layer it reached; nothing runs
+   eagerly in its place.  The first call at a key answers from its warm
+   run.  A program over several devices (``parallel``) and a program on
+   the CPU run the resolved list uncaptured.
 
-While ``profiler.trace`` is active (the module flag ``TRACING``, read once
-per call), each dynamic application runs inside
-``torch.profiler.record_function(<IR layer name>)``, the counterpart of the
-tracer's ``jax.named_scope``; outside a trace the loop enters no scope.
-``Program.cost_analysis`` counts the work of the graph at given input
+``_run`` is the eager loop the entry is resolved from (every record folded
+again at every call): the reference a caller holds the compiled entry
+against.  While ``profiler.trace`` is active (the module flag ``TRACING``,
+read once per call), the program runs the entry's list eagerly, each
+dynamic application inside ``torch.profiler.record_function(<IR layer
+name>)``, the counterpart of the tracer's ``jax.named_scope``; outside a
+trace no scope is entered.  ``lowered_text`` is the text of the entry at a
+signature; ``cost_analysis`` counts the work of the graph at given input
 shapes, the counterpart of XLA's cost analysis of the compiled program.
 
 The compute-dtype policy is the tracer's: ``conv`` and ``add`` get the
@@ -35,7 +59,11 @@ activation codes), and outputs in the compute dtype leave as float32.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import threading
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -43,6 +71,8 @@ import torch
 
 from ..device import resolve_device
 from ..ir import Graph
+from ..ops import modes
+from ..ops import torch_ops as tops
 from ..ops.qtypes import QTensor
 from ..ops.torch_ops import to_dtype
 from ..registry import get_op
@@ -157,16 +187,174 @@ def _host(v):
     return torch.as_tensor(np.asarray(v))
 
 
+def _as_tensor(x):
+    """A caller's input as a tensor (numpy arrays wrap, on the host)."""
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(
+        np.asarray(x))
+
+
+def _fresh(v):
+    """A device copy of an output, so a later replay cannot overwrite an
+    answer already handed out."""
+    if isinstance(v, tuple):
+        return tuple(_fresh(t) for t in v)
+    return v.clone() if isinstance(v, torch.Tensor) else v
+
+
+def _freeze(v):
+    """A hashable snapshot of an overrides value's content."""
+    if isinstance(v, dict):
+        return tuple(sorted((str(k), _freeze(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    try:
+        hash(v)
+    except TypeError:
+        return repr(v)
+    return v
+
+
+def _switches() -> tuple:
+    """The module flags and backend settings the ops read at call time
+    (ops/torch_ops.py, ops/kernels/stage64.py, ops/modes.py, TF32): part of
+    every entry's key, as the ops would take another path under others."""
+    from ..ops.kernels import stage64
+    return (tops._PALLAS_CONV1X1, tops._STACK_CONV, bool(stage64.SPLIT),
+            stage64.REQUANT, modes.get_erf_mode(),
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def _counters() -> list:
+    """The kernel modules' launch and fall-off counters."""
+    from ..ops.kernels import gemm, stage64, stagen
+    return [stage64.LAUNCHES, stage64.FALLOFF, stagen.LAUNCHES,
+            stagen.FALLOFF, gemm.LAUNCHES]
+
+
+def _delta(after, before) -> collections.Counter:
+    d = collections.Counter(after)
+    d.subtract(before)
+    return collections.Counter({k: v for k, v in d.items() if v})
+
+
+# LAUNCHES key prefix -> the kernel it launches (csrc/*.cu)
+_KERNELS = (("stem_pool_requant", "stem_kernel"),
+            ("basic_block", "block_kernel"),
+            ("stagen_block", "block_kernel"),
+            ("stagen_conv", "conv_kernel"),
+            ("dense_q", "dense_q_kernel"))
+
+
+def _kernel_names(launched) -> dict:
+    """{kernel name: launches} of a LAUNCHES delta."""
+    out: dict[str, int] = {}
+    for key, n in launched.items():
+        name = next(k for p, k in _KERNELS if key.startswith(p))
+        out[name] = out.get(name, 0) + n
+    return out
+
+
+def _sig(v) -> str:
+    """A value's dtype and shape for ``lowered_text``."""
+    if isinstance(v, tuple):
+        return "(" + ", ".join(_sig(t) for t in v) + ")"
+    if isinstance(v, QTensor):
+        return f"q{_sig(v.q)}"
+    if isinstance(v, torch.Tensor):
+        return f"{str(v.dtype).replace('torch.', '')}{list(v.shape)}"
+    if v is None:
+        return "None"
+    if not isinstance(v, np.ndarray) and hasattr(v, "parts"):
+        # a parallel program's value split over shards
+        return (f"{type(v).__name__.lower()} "
+                f"{str(v.dtype).replace('torch.', '')}{list(v.shape)}")
+    a = np.asarray(v)
+    return f"host {a.dtype}{list(a.shape)}"
+
+
+def _kernel_nodes(graph) -> int:
+    """Kernel nodes of a captured (kept) CUDA graph, read through the
+    driver API."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+
+    def check(err, what):
+        if err:
+            raise RuntimeError(f"{what} failed: CUDA driver error {err}")
+
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kind, count = ctypes.c_int(0), 0
+    for node in nodes[:n.value]:
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        count += kind.value == 0                  # CU_GRAPH_NODE_TYPE_KERNEL
+    return count
+
+
+@dataclasses.dataclass(frozen=True)
+class _Ref:
+    """An argument read from the dynamic env at run time."""
+
+    name: str
+
+
+@dataclasses.dataclass
+class _Step:
+    """One resolved dynamic application (``args`` hold values or
+    ``_Ref``s), or, with ``layer`` None, the dynamic names ``drop`` that a
+    static record rebinds."""
+
+    ri: int
+    rec: AppRecord | None
+    layer: Any
+    spec: Any
+    args: list
+    kw: dict
+    edge: Any
+    name: str
+    drop: tuple = ()
+    text: str = ""
+
+
+@dataclasses.dataclass
+class _Entry:
+    """The compiled program at one key: the folded statics, the resolved
+    list, the names the tail and the outputs read from the prefix, and on
+    CUDA the captured graph with its static buffers."""
+
+    key: tuple
+    steps: list
+    statics: dict
+    folded: int
+    needs: list
+    lines: list
+    graph: Any = None
+    static_in: list = dataclasses.field(default_factory=list)
+    static_out: dict = dataclasses.field(default_factory=dict)
+    delta: list = dataclasses.field(default_factory=list)
+    kernel_nodes: int | None = None
+    capture_ms: float | None = None
+
+
 class Program:
-    """Straight-line execution of a Graph on one device.
+    """Compiled straight-line execution of a Graph on one device.
 
     ``weight_materializer(name, leaf, op)`` lets the quantization layer
     override how a params leaf is turned into what an op consumes;
     ``param_transform`` turns the raw weights into params (e.g. QTensors).
     ``op_overrides`` injects per-opcode kwargs, e.g.
     ``{"stage64": {"force_decomposed": True}}`` or ``{"conv": {"plain":
-    True}}`` (the kernels' plain versions, see the registry).
+    True}}`` (the kernels' plain versions, see the registry); its content
+    is part of every entry's key.
     """
+
+    # a program over several devices (parallel) runs its entries uncaptured
+    _capturable = True
 
     def __init__(self, graph: Graph, weights: list,
                  weight_materializer: Callable | None = None,
@@ -182,6 +370,10 @@ class Program:
         self._tail: Executor | None = None
         self._layers = graph.layer_map()
         self._cdt = to_dtype(compute_dtype)
+        self._cache: dict[tuple, _Entry] = {}
+        self._lock = threading.RLock()
+        self._pool = None              # the graphs' memory pool
+        self._side = None              # the warm-run and capture stream
 
         name_to_w = dict(zip(graph.init_names(), weights))
         self._senv0 = {"None": None, **name_to_w}
@@ -256,46 +448,82 @@ class Program:
         return self._tail.run_range(tenv, self.plan.cut,
                                     len(self.graph.flow))
 
+    def _suffix_needs(self) -> list[str]:
+        """Names the host tail reads from the prefix (the final outputs
+        where there is no tail), as the tracer lists them."""
+        flow = self.graph.flow
+        if self.plan.cut >= len(flow):
+            return list(flow[-1].dst)
+        produced: set[str] = set()
+        needs: list[str] = []
+        for e in flow[self.plan.cut:]:
+            for s in e.src:
+                if s not in produced and s not in needs:
+                    needs.append(s)
+            produced.update(e.dst)
+        for s in flow[-1].dst:
+            if s not in produced and s not in needs:
+                needs.append(s)
+        return needs
+
     # ------------------------------------------------------------------ run
-    @torch.inference_mode()
-    def __call__(self, *inputs):
-        graph = self.graph
-        if len(inputs) != len(graph.inputs):
-            raise TypeError(
-                f"model expects {len(graph.inputs)} input(s) "
-                f"{graph.inputs}, got {len(inputs)}")
+    def _overrides(self) -> dict:
         overrides = self.op_overrides
         if self._cdt is not None:
             overrides = dict(overrides)
             for op in ("conv", "add"):
                 overrides[op] = {**overrides.get(op, {}),
                                  "compute_dtype": self.compute_dtype}
-        scoped = TRACING
-        env: dict[str, Any] = {}                  # dynamic values (device)
-        senv: dict[str, Any] = dict(self._senv0)  # static values (host)
-        for n, x in zip(graph.inputs, inputs):
-            env[n] = self._bind_input(
-                self._cast_graph_in(_to_device(x, self.device)))
+        return overrides
 
+    def _inputs(self, inputs) -> list:
+        if len(inputs) != len(self.graph.inputs):
+            raise TypeError(
+                f"model expects {len(self.graph.inputs)} input(s) "
+                f"{self.graph.inputs}, got {len(inputs)}")
+        return [_as_tensor(x) for x in inputs]
+
+    def _bind(self, inputs) -> dict:
+        return {n: self._bind_input(self._cast_graph_in(
+                    _to_device(x, self.device)))
+                for n, x in zip(self.graph.inputs, inputs)}
+
+    def _walk(self, inputs, steps=None, scoped=False):
+        """Run the flow once: the shape and static records on the host,
+        each dynamic application on the device.  With ``steps`` (a list),
+        append each application as it was resolved, and the names a static
+        record takes from the dynamic env.  Returns the dynamic and static
+        envs."""
+        graph = self.graph
+        overrides = self._overrides()
+        env: dict[str, Any] = self._bind(inputs)    # dynamic values (device)
+        senv: dict[str, Any] = dict(self._senv0)    # static values (host)
         for ri, rec in enumerate(self.plan.records):
             edge = graph.flow[rec.edge]
-            layer = self._layers[edge.layers[rec.li]]
+            lname = edge.layers[rec.li]
+            layer = self._layers[lname]
             spec = get_op(layer.op)
             src = edge.src if rec.li == 0 else edge.dst
 
-            if rec.kind == "shape":
-                v = env[src[0]] if src[0] in env else senv[src[0]]
-                _store(senv, env, edge, np.asarray(tuple(v.shape), np.int64))
-                continue
-
-            if rec.kind == "static":
-                out = spec.fn(*[_host(senv[s]) for s in src], **layer.kwargs)
+            if rec.kind != "dyn":
+                if rec.kind == "shape":
+                    v = env[src[0]] if src[0] in env else senv[src[0]]
+                    out = spec.fn(v)
+                else:
+                    out = spec.fn(*[_host(senv[s]) for s in src],
+                                  **layer.kwargs)
+                drop = tuple(n for n in edge.dst if n in env)
+                if steps is not None and drop:
+                    steps.append(_Step(ri, None, None, None, [], {}, edge,
+                                       lname, drop))
                 _store(senv, env, edge, out)
                 continue
 
             args = []
             for p, s in enumerate(src):
-                if (ri, p) in self._wargs:
+                if p in spec.host_args and rec.arg_static[p]:
+                    args.append(senv[s])
+                elif (ri, p) in self._wargs:
                     args.append(self._wargs[(ri, p)])
                 elif rec.arg_static[p]:
                     v = senv[s]
@@ -307,13 +535,170 @@ class Program:
             ov = overrides.get(layer.op)
             if ov:
                 kw = {**kw, **ov}
+            if steps is not None:
+                step = _Step(ri, rec, layer, spec,
+                             [a if rec.arg_static[p] else _Ref(s)
+                              for p, (s, a) in enumerate(zip(src, args))],
+                             kw, edge, lname)
+                before = [collections.Counter(c) for c in _counters()]
             if scoped:
-                with torch.profiler.record_function(edge.layers[rec.li]):
+                with torch.profiler.record_function(lname):
                     out = self._apply(ri, rec, layer, spec, args, kw)
             else:
                 out = self._apply(ri, rec, layer, spec, args, kw)
+            if steps is not None:
+                step.text = self._line(step, args, out, [
+                    _delta(c, b) for c, b in zip(_counters(), before)])
+                steps.append(step)
             _store(env, senv, edge, out)
+        return env, senv
+
+    def _run(self, *inputs):
+        """The eager loop: every record folded and every application
+        resolved again at this call, nothing cached or captured — the
+        reference the compiled entry is held against."""
+        with torch.inference_mode():
+            env, senv = self._walk(self._inputs(inputs))
+            return self._finish(env, senv)
+
+    def _run_steps(self, entry, env, scoped=False, where=None):
+        """Run an entry's resolved list on ``env`` (its inputs bound)."""
+        for st in entry.steps:
+            if st.layer is None:
+                for n in st.drop:
+                    env.pop(n, None)
+                continue
+            if where is not None:
+                where[0] = st.name
+            args = [env[a.name] if isinstance(a, _Ref) else a
+                    for a in st.args]
+            if scoped:
+                with torch.profiler.record_function(st.name):
+                    out = self._apply(st.ri, st.rec, st.layer, st.spec,
+                                      args, st.kw)
+            else:
+                out = self._apply(st.ri, st.rec, st.layer, st.spec, args,
+                                  st.kw)
+            _store(env, {}, st.edge, out)
+        return env
+
+    # ------------------------------------------------------------ compile
+    def _key(self, inputs) -> tuple:
+        specs = tuple((tuple(x.shape), x.dtype, str(x.device))
+                      for x in inputs)
+        return specs, _freeze(self.op_overrides), _switches()
+
+    def _captures(self) -> bool:
+        return self._capturable and self.device.type == "cuda"
+
+    def _stream(self):
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._side
+
+    def _entry(self, *inputs) -> _Entry:
+        """The compiled entry at these inputs' key, compiled (and on CUDA
+        captured) on first use."""
+        inputs = self._inputs(inputs)
+        with self._lock, torch.inference_mode():
+            key = self._key(inputs)
+            if key not in self._cache:
+                self._compile(key, inputs)
+            return self._cache[key]
+
+    def _compile(self, key, inputs, scoped=False):
+        """Walk the flow once at ``key`` (on CUDA: the warm run, on the
+        side stream), keep the folded statics and the resolved list, and on
+        CUDA capture the list (unless traced: then at the next call).
+        Returns the walk's answer."""
+        steps: list[_Step] = []
+        cuda = self._captures()
+        ctx = contextlib.nullcontext()
+        if cuda:
+            side = self._stream()
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            ctx = torch.cuda.stream(side)
+        with ctx:
+            env, senv = self._walk(inputs, steps=steps, scoped=scoped)
+        entry = _Entry(key, steps, dict(senv),
+                       sum(r.kind != "dyn" for r in self.plan.records),
+                       self._suffix_needs(),
+                       [st.text for st in steps if st.layer is not None])
+        if cuda:
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            if not scoped:
+                self._capture(entry, inputs)
+        self._cache[key] = entry
         return self._finish(env, senv)
+
+    def _capture(self, entry, inputs):
+        """Capture the entry's list into a CUDA graph with static input
+        and output buffers; record the kernel counters' delta and leave
+        the counters as they were (a capture runs nothing)."""
+        dev = self.device
+        entry.static_in = [
+            torch.empty_like(self._cast_graph_in(_to_device(x, dev)))
+            for x in inputs]
+        counters = _counters()
+        before = [collections.Counter(c) for c in counters]
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        where = ["(inputs)"]
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  stream=self._stream(),
+                                  capture_error_mode="thread_local"):
+                env = {n: self._bind_input(x) for n, x in
+                       zip(self.graph.inputs, entry.static_in)}
+                self._run_steps(entry, env, where=where)
+                where[0] = "(outputs)"
+                entry.static_out = {n: self._cast_out(env[n])
+                                    for n in entry.needs if n in env}
+        except Exception as e:
+            raise RuntimeError(
+                f"CUDA graph capture of {self.graph.inputs} at "
+                f"{entry.key[0]} failed at layer {where[0]}: {e}") from e
+        finally:
+            entry.delta = [_delta(c, b) for c, b in zip(counters, before)]
+            for c, b in zip(counters, before):
+                c.clear()
+                c.update(b)
+        entry.kernel_nodes = _kernel_nodes(graph)
+        graph.instantiate()
+        torch.cuda.synchronize(dev)
+        entry.capture_ms = 1e3 * (time.perf_counter() - t0)
+        entry.graph = graph
+
+    def _replay(self, entry, inputs):
+        """Copy the inputs in, replay, and copy each output out."""
+        for buf, x in zip(entry.static_in, inputs):
+            buf.copy_(x)
+        entry.graph.replay()
+        out = {n: _fresh(v) for n, v in entry.static_out.items()}
+        for c, d in zip(_counters(), entry.delta):
+            c.update(d)
+        return out
+
+    @torch.inference_mode()
+    def __call__(self, *inputs):
+        """Run the entry at these inputs' key: compile it on first use
+        (answering from the walk), replay its graph on the card, run its
+        list elsewhere or while traced."""
+        inputs = self._inputs(inputs)
+        scoped = TRACING
+        with self._lock:
+            key = self._key(inputs)
+            entry = self._cache.get(key)
+            if entry is None:
+                return self._compile(key, inputs, scoped)
+            if scoped or not self._captures():
+                env = self._run_steps(entry, self._bind(inputs), scoped)
+                return self._finish(env, entry.statics)
+            if entry.graph is None:        # compiled under a trace
+                self._capture(entry, inputs)
+            env = self._replay(entry, inputs)
+        return self._finish(env, entry.statics)
 
     # the steps a program over several devices (``parallel``) replaces
     def _bind_input(self, x):
@@ -345,6 +730,101 @@ class Program:
         return res[0] if len(res) == 1 else tuple(res)
 
     # ------------------------------------------------------------ profiling
+    def _route_text(self, step, args, launched) -> str:
+        """What an application ran: the hand kernels it launched (on the
+        CPU, or with ``plain``, their plain versions), the ``_int_mm``
+        chain of an s8 conv, cuDNN, cuBLAS, or other ATen ops."""
+        op, kw = step.layer.op, step.kw
+        kernels = _kernel_names(launched[0] + launched[2] + launched[4])
+        if kernels:
+            return " + ".join(f"{k} x{n}" for k, n in kernels.items())
+        cuda = self.device.type == "cuda"
+        if op in ("stage64", "stagen"):
+            if kw.get("force_decomposed") or launched[1] or launched[3]:
+                return "decomposed"
+            cache = self._caches.get(step.ri, {})
+            plan = next(iter(cache.values()), None)
+            if op == "stage64":
+                nb = (len(args) - 3) // 4
+                kernels = {"stem_kernel": 1, **({"block_kernel": nb}
+                                                if nb else {})}
+            elif plan is not None:
+                nf = sum(b.fused for b in plan.blocks)
+                nc = sum(len(b.convs) + (b.proj is not None)
+                         for b in plan.blocks if not b.fused)
+                kernels = {k: n for k, n in (("block_kernel", nf),
+                                             ("conv_kernel", nc)) if n}
+            return "plain[" + " + ".join(
+                f"{k} x{n}" for k, n in kernels.items()) + "]"
+        if op in ("conv", "dense") and isinstance(args[1], QTensor):
+            from ..ops.kernels import gemm
+            if op == "conv":
+                x = args[0]
+                route = kw.get("route") or tops.conv_route(
+                    tuple(x.shape), x.dtype, args[1], kw.get("group", 1),
+                    kw.get("strides"), kw.get("dilations"), kw.get("pads"),
+                    kw.get("auto_pad"))
+            else:
+                n, kd = args[1].q.shape
+                route = kw.get("branch") or (
+                    "gemm" if gemm.tile_plan(
+                        int(np.prod(args[0].shape)) // kd, n, kd)
+                    is not None else "gemm_fallback")
+                route = {"kernel": "gemm", "fallback": "gemm_fallback"}.get(
+                    route, route)
+            if route in ("s8", "w8a8"):
+                return "_int_mm"
+            if route == "gemm":
+                return "plain[dense_q_kernel x1]"
+            if route == "gemm_fallback":
+                return "fallback_dense (cublas)" if cuda else "plain"
+        if not cuda:
+            return "plain"
+        if op in ("conv", "convtranspose"):
+            return "cudnn"
+        if op in ("dense", "matmul", "lstm", "gru"):
+            return "cublas"
+        return "aten"
+
+    def _line(self, step, args, out, launched) -> str:
+        ins = ", ".join(_sig(a) for a in args)
+        return (f"  {step.name}: {step.layer.op} "
+                f"[{self._route_text(step, args, launched)}] ({ins}) -> "
+                f"{_sig(out)}")
+
+    def lowered_text(self, *inputs) -> str:
+        """The compiled entry at these inputs' signature, as text: one line
+        per dynamic application in flow order (layer, opcode, route, input
+        and output dtypes and shapes), the folded statics, the cut and the
+        tail, and on CUDA the captured graph's kernel nodes."""
+        entry = self._entry(*inputs)
+        specs = ", ".join(f"{str(d).replace('torch.', '')}{list(s)} on {v}"
+                          for s, d, v in entry.key[0])
+        folded = sum(self._senv0.get(n, _UNSET) is not v
+                     for n, v in entry.statics.items())
+        flow = self.graph.flow
+        out = [f"program {self.graph.inputs}: ({specs}), compute dtype "
+               f"{self.compute_dtype or 'float32'}, overrides "
+               f"{dict(self.op_overrides)}",
+               f"folded statics: {entry.folded} records, {folded} values "
+               f"beside the weights"]
+        out += entry.lines
+        if self.plan.cut < len(flow):
+            out.append(f"cut: flow[{self.plan.cut}] of {len(flow)} "
+                       f"({self.plan.cut_reason}); tail flow[{self.plan.cut}:"
+                       f"{len(flow)}] in the float32 executor on "
+                       f"{self.device}, reading {entry.needs}")
+        else:
+            out.append(f"cut: none; no tail ({len(flow)} flow edges)")
+        if entry.graph is not None:
+            out.append(f"graph: CUDA graph, {entry.kernel_nodes} kernel "
+                       f"nodes, captured in {entry.capture_ms:.3f} ms")
+        elif self._captures():
+            out.append("graph: not captured yet (compiled under a trace)")
+        else:
+            out.append(f"graph: none (runs uncaptured on {self.device})")
+        return "\n".join(out)
+
     def cost_analysis(self, *inputs) -> dict:
         """{"flops", "bytes accessed"} of one call at these inputs, counted
         over the float32 executor's run of the whole graph (the fused

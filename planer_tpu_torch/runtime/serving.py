@@ -7,17 +7,17 @@ the bucket size, executed, and the results are split back to per-request
 futures.  ``stats()`` reports occupancy, latency, padding and the fused
 stages' fall-offs.
 
-The port compiles nothing per shape, but shapes still cost: the stage64 and
-stagen kernels fold their tables per program, cuDNN picks its algorithms
-per input shape, and a shape off the kernels' geometry falls back to the
-decomposed chain.  Batch buckets and spatial buckets keep the set of shapes
-the net sees small and known in advance, and ``warmup`` builds the kernels
-and fills those caches before the first request.
+The program compiles an entry per input shape (on the card: a warm run
+and a CUDA graph capture, ``runtime/program.py``), the stage64 and stagen
+kernels fold their tables per program, and a shape off the kernels'
+geometry falls back to the decomposed chain.  Batch buckets and spatial
+buckets keep the set of shapes the net sees small and known in advance,
+and ``warmup`` compiles (and so captures) each of them before the first
+request.
 
-Threads: the dispatcher thread runs the net, so the kernels' per-shape
-caches, the program's folded tables and the CUDA stream are used from that
-thread.  The engine must be the net's only caller while it runs (warm-up
-runs in ``__init__``, before the dispatcher starts).
+Threads: the dispatcher thread runs the net, so the compiled entries are
+replayed from that thread.  The engine must be the net's only caller while
+it runs (warm-up runs in ``__init__``, before the dispatcher starts).
 """
 from __future__ import annotations
 
@@ -96,10 +96,12 @@ class ServingEngine:
         counted), so a shape that escapes the buckets is observable.
 
         ``warmup`` with ``example_shape`` runs one zero batch of every
-        bucket through the net in ``__init__``, in the caller's thread: the
-        kernels build and their caches fill before the first request.  With
-        ``hw_buckets`` it also derives each spatial bucket's crop signature
-        there, so the first padded batch does not wait for the probe."""
+        bucket, at ``example_shape`` and at each spatial bucket's H x W,
+        through the net in ``__init__``, in the caller's thread: every
+        entry the buckets can reach compiles (on the card: captures) and
+        the kernels build before the first request.  With ``hw_buckets`` it
+        first derives each spatial bucket's crop signature there, so the
+        first padded batch does not wait for the probe."""
         self.net = net
         self.buckets = tuple(sorted(buckets))
         self.hw_buckets = None
@@ -115,13 +117,17 @@ class ServingEngine:
         self._q: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         if warmup and example_shape is not None:
-            for b in self.buckets:
-                self.net(np.zeros((b,) + tuple(example_shape), np.float32))
-            if (self.hw_buckets is not None and crop_outputs
-                    and len(example_shape) >= 2):
+            shapes = [tuple(example_shape)]
+            if self.hw_buckets is not None and len(example_shape) >= 2:
                 for bh, bw in self.hw_buckets:
-                    self._spatial_signature(
-                        tuple(example_shape[:-2]) + (bh, bw))
+                    shp = tuple(example_shape[:-2]) + (bh, bw)
+                    if crop_outputs:
+                        self._spatial_signature(shp)
+                    if shp not in shapes:
+                        shapes.append(shp)
+            for shp in shapes:
+                for b in self.buckets:
+                    self.net(np.zeros((b,) + shp, np.float32))
         self._thread = threading.Thread(target=self._dispatch, daemon=True)
         self._thread.start()
 

@@ -1,0 +1,60 @@
+"""Tests of the port that need an NVIDIA card, marked ``cuda``: they skip
+without one, and import neither jax nor ``planer_tpu``, so they run on the
+card's machine, where JAX is absent (``--noconftest``: tests/conftest.py
+sets JAX up):
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from planer_tpu_torch import models as tm
+
+
+def _x(shape, seed=0):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA graph capture")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_capture_replays_the_entry_on_the_card(card):
+    """On the card the first call captures; a replay equals the eager loop
+    bit for bit, returns fresh tensors, and the text counts the graph's
+    kernel nodes."""
+    net = tm.resnet18(num_classes=8, device="cuda")
+    prog = net.program
+    xa, xb = _x((2, 3, 32, 32), 1), _x((2, 3, 32, 32), 2)
+    prog(xa)
+    entry = prog._entry(xa)
+    assert entry.graph is not None and entry.kernel_nodes > 20
+    ya = prog(xa)
+    keep = ya.clone()
+    yb = prog(xb)
+    torch.cuda.synchronize()
+    assert torch.equal(ya, keep) and not torch.equal(ya, yb)
+    torch.testing.assert_close(ya, prog._run(xa), rtol=0, atol=0)
+    assert f"{entry.kernel_nodes} kernel nodes" in prog.lowered_text(xa)
+
+
+@pytest.mark.cuda
+def test_a_capture_that_fails_raises_with_its_layer(card):
+    """A pad whose constant value is a dynamic input reads it on the host:
+    the warm run may, a capture may not.  The call raises naming the
+    layer, nothing runs eagerly in its place, and no entry is kept."""
+    from planer_tpu_torch.models.builder import GraphBuilder
+    from planer_tpu_torch.runtime.program import Program
+    b = GraphBuilder(["x", "v"])
+    pads = b.weight("pads", np.array([0, 0, 1, 1, 0, 0, 1, 1], np.int64))
+    b.ret(b.pad("x", pads, "v", name="the_pad"))
+    prog = Program(*b.build(), device="cuda")
+    with pytest.raises(RuntimeError, match="failed at layer the_pad"):
+        prog(_x((1, 2, 3, 3)), np.array([0.5], np.float32))
+    assert not prog._cache

@@ -501,6 +501,31 @@ def _public_defs(path):
             and not n.name.startswith("_")}
 
 
+def _params(fn) -> set:
+    a = fn.args
+    names = [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs]
+    names += [x.arg for x in (a.vararg, a.kwarg) if x is not None]
+    return set(names) - {"self", "cls"}
+
+
+def _surface(path) -> dict:
+    """{name: parameter names} of a file's public functions and of each
+    public class's public methods (``Class.method``, ``__init__`` and
+    ``__call__`` included); a class itself maps to None."""
+    out = {}
+    for n in ast.parse(open(path).read()).body:
+        if n.__class__ is ast.FunctionDef and not n.name.startswith("_"):
+            out[n.name] = _params(n)
+        elif isinstance(n, ast.ClassDef) and not n.name.startswith("_"):
+            out[n.name] = None
+            for m in n.body:
+                if isinstance(m, ast.FunctionDef) and (
+                        not m.name.startswith("_")
+                        or m.name in ("__init__", "__call__")):
+                    out[f"{n.name}.{m.name}"] = _params(m)
+    return out
+
+
 # JAX modules whose port counterpart sits in another file, as
 # (port file, {JAX name: port name} where a name differs)
 STAND_INS = {
@@ -537,6 +562,41 @@ DIFFERENCES = {
     "test_halo_exchange_rows",                      # a list of shards
     "parallel/multihost.py:initialize": "test_torch_dispatcher.py::"
     "test_initialize_forms_a_gloo_world_of_one",
+    # methods and parameters (``Class.method``, ``function(parameter)``),
+    # named by the JAX module's path
+    "runtime/tracer.py:TracedProgram.__init__(jit_kwargs)":
+    "test_torch_compile.py::test_program_takes_no_jit_kwargs_or_device_params",
+    "runtime/tracer.py:TracedProgram.__init__(device_params)":
+    "test_torch_compile.py::test_program_takes_no_jit_kwargs_or_device_params",
+    "quant.py:make_quant_program(jit_kwargs)":
+    "test_torch_compile.py::test_program_takes_no_jit_kwargs_or_device_params",
+    "ops/qtypes.py:QTensor.tree_flatten":           # JAX pytree hooks
+    "test_torch_compile.py::test_qtensor_is_no_pytree",
+    "ops/qtypes.py:QTensor.tree_unflatten":
+    "test_torch_compile.py::test_qtensor_is_no_pytree",
+    # a CUDA kernel has no interpret mode: CPU tensors run the plain
+    # version, and ``plain`` asks for it on any device
+    "ops/jax_ops.py:stage64(interpret)": "test_torch_guard.py::"
+    "test_kernel_entry_points_take_plain_in_place_of_interpret",
+    "ops/pallas/stage64.py:stage64(interpret)": "test_torch_guard.py::"
+    "test_kernel_entry_points_take_plain_in_place_of_interpret",
+    "ops/pallas/stage64.py:stage64(blocks)": "test_torch_guard.py::"
+    "test_kernel_entry_points_take_plain_in_place_of_interpret",
+    "ops/pallas/gemm.py:dense_q(interpret)": "test_torch_guard.py::"
+    "test_kernel_entry_points_take_plain_in_place_of_interpret",
+    "ops/pallas/gemm.py:matmul_q(interpret)": "test_torch_guard.py::"
+    "test_kernel_entry_points_take_plain_in_place_of_interpret",
+    "ops/pallas/stagen.py:stagen(interpret)": "test_torch_guard.py::"
+    "test_kernel_entry_points_take_plain_in_place_of_interpret",
+    # one op library serves the program and the float32 executor
+    "ops/pallas/stage64.py:decomposed(jops)": "test_torch_guard.py::"
+    "test_one_op_library_serves_both_engines",
+    "ops/pallas/stagen.py:decomposed(jops)": "test_torch_guard.py::"
+    "test_one_op_library_serves_both_engines",
+    "parallel/spatial.py:halo_exchange(x)": "test_torch_spatial.py::"
+    "test_halo_exchange_rows",                      # a list of shards
+    "parallel/spatial.py:halo_exchange(axis_name)": "test_torch_spatial.py::"
+    "test_halo_exchange_rows",
 }
 
 
@@ -582,6 +642,70 @@ def test_every_jax_module_and_example_has_its_counterpart():
     assert not missing, missing
     for where, pin in DIFFERENCES.items():
         module, name = where.split(":")
-        assert name in _public_defs(os.path.join(troot, module)), where
         tfile, tname = pin.split("::")
         assert tname in _public_defs(os.path.join(ROOT, "tests", tfile)), pin
+        if "(" in name or "." in name:
+            continue
+        assert name in _public_defs(os.path.join(troot, module)), where
+
+
+def test_every_jax_method_and_parameter_has_its_counterpart():
+    """Each public method of a JAX class (renamed through ``STAND_INS``)
+    exists on its port class, and each parameter of a JAX function or
+    method on its port counterpart, unless a chosen difference lists it
+    with its pinning test (which exists, as the test above checks)."""
+    jroot, troot = (os.path.join(ROOT, p) for p in ("planer_tpu",
+                                                    "planer_tpu_torch"))
+    gaps = set()
+    for d, _, files in os.walk(jroot):
+        for f in (f for f in files if f.endswith(".py")):
+            rel = os.path.relpath(os.path.join(d, f), jroot).replace(
+                os.sep, "/")
+            port, renamed = STAND_INS.get(rel, (rel, {}))
+            theirs = _surface(os.path.join(troot, port))
+            for name, params in _surface(os.path.join(jroot, rel)).items():
+                cls, _, meth = name.partition(".")
+                tname = renamed.get(cls, cls) + ("." + meth if meth else "")
+                if tname not in theirs:
+                    if meth:           # module-level names: the test above
+                        gaps.add(f"{rel}:{name}")
+                    continue
+                if params is not None and theirs[tname] is not None:
+                    gaps.update(f"{rel}:{name}({p})"
+                                for p in params - theirs[tname])
+    chosen = {k for k in DIFFERENCES if "(" in k or "." in k.split(":")[1]}
+    assert gaps == chosen, (sorted(gaps - chosen), sorted(chosen - gaps))
+
+
+def test_kernel_entry_points_take_plain_in_place_of_interpret():
+    """Where a JAX kernel entry point takes ``interpret`` (run the Pallas
+    kernel in the interpreter), the port's takes ``plain`` (its kernels'
+    plain PyTorch versions on any device; CPU tensors run them anyway),
+    and the fused stage's informational ``blocks`` stops at the op."""
+    import inspect
+    from planer_tpu_torch.ops import torch_ops as tops
+    for fn in (tops.stage64, st.stage64, tg.dense_q, tg.matmul_q,
+               sg.stagen):
+        ps = inspect.signature(fn).parameters
+        assert "plain" in ps and "interpret" not in ps, fn
+    assert "blocks" in inspect.signature(tops.stage64).parameters
+    assert "blocks" not in inspect.signature(st.stage64).parameters
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((64, 128)).astype(np.float32))
+    K = QTensor(torch.as_tensor(rng.integers(-127, 128, (128, 128),
+                                             dtype=np.int8)),
+                torch.full((128, 1), 0.01))
+    torch.testing.assert_close(tg.dense_q(x, K, plain=True), tg.dense_q(x, K),
+                               rtol=0, atol=0)
+
+
+def test_one_op_library_serves_both_engines():
+    """The JAX package's fused-stage chains take ``jops`` (jax_ops for the
+    program, numpy_ops for the oracle); the port has one op library, so
+    its chains take none and the float32 executor runs the same functions
+    as the program wherever no quantized fast path differs."""
+    import inspect
+    for fn in (st.decomposed, sg.decomposed):
+        assert "jops" not in inspect.signature(fn).parameters
+    for op in ("relu", "maxpool", "reshape", "concat", "gather"):
+        assert get_op(op).fn is get_op(op).oracle_fn
