@@ -111,7 +111,8 @@
    and BatchNorm statistics, on the card) through ``torch2planer`` ->
    ``read_net`` on the card -> optimize -> calibrate on 4 synthetic images
    -> static INT8 -> bf16: first the unquantized import in float32 against
-   the module's own forward (TF32 off, max|d|/max|y| <= 1e-4); then one
+   the module's own forward (under ``float32_exact``, as the port's calls
+   run; max|d|/max|y| <= 1e-4); then one
    stage64 and the same opcodes as ``models.resnet18()`` through the same
    pipeline, batch 1, 8 and 64 with the stem and both block kernels
    launched once per forward, the plain leg bit-identical, the float32
@@ -159,15 +160,21 @@
    printed), 1 stem + 2 block launches and no fall-off in every batch a
    worker served, worker 0 evicted and every request answered; the
    group's rate printed without a claim.  Then the main path's net under
-   ``shard_program`` on a (2, 4) mesh of cuda:0 at b8 and b64 against the
-   unsharded program with no stage64 or stagen launch, UNet (base 32,
-   depth 4, float32, TF32 off) at 512 under (2, 4) ``shard_program`` and
-   (1, 4) ``shard_spatial``, ``spatial_conv`` against one conv, and
-   ``multihost.initialize`` forming an nccl world of one;
+   ``shard_program`` on a (2, 4) mesh of cuda:0 at b8 and b64: each entry
+   captured as a CUDA graph (kernel nodes printed), its first call and
+   replay bit-identical to the sharded ``Program._run``, an answer handed
+   out unchanged by a later replay, against the unsharded program with no
+   stage64 or stagen launch, the replay, ``_run`` and unsharded steps
+   printed without a claim; UNet (base 32, depth 4, float32) at 512 under
+   (2, 4) ``shard_program`` and (1, 4) ``shard_spatial``, each captured
+   and replaying bit-identical to its ``_run``, against the unsharded
+   UNet; ``spatial_conv`` against one conv; and ``multihost.initialize``
+   forming an nccl world of one;
 22. path 17: the user examples.  The four ``examples/torch_*.py`` scripts
    run as a user runs them, started together, each in its own process on
    cuda:0: each exits 0 and prints its JAX original's lines.  Then each
-   example's ``main(device="cuda")`` in this process with TF32 off:
+   example's ``main(device="cuda")`` in this process, as a user calls it
+   (the harness sets no TF32 flag):
    weight-only INT8 ResNet-18's bf16 logits against the float32 executor on
    the same dequantized weights (max|d|/max|y| <= 0.05, the top-5 ids equal
    at every rank the difference cannot swap); float32 YOLO-v3 at 416 with
@@ -182,7 +189,12 @@
    no Pallas kernel on these configurations); wall times on the host clock
    printed.
 
-23. path 18, right after the main path: the compile step.  The main
+23. path 18, right after the main path: first float32 precision, with
+   both TF32 flags set on by the caller: a fresh float32 ResNet-18 answers
+   bit-identically before and after its float32 executor is first built,
+   within 1e-4 of that executor; a program with a cut compiles one entry
+   at its first signature; the flags read on after every program,
+   executor and ``lowered_text`` call.  Then the compile step.  The main
    path's net gets a fresh program; at batch 1, 8 and 64 the first call
    takes a new entry, warms up (1 stem + 2 block launches) and captures a
    CUDA graph; two later calls replay (their launches added from the
@@ -192,13 +204,16 @@
    bare replay as many kernels as the graph has kernel nodes.  With the
    plain overrides the program takes a new entry that launches no stage64
    kernel and whose text names the plain versions; back on ``{}`` it
-   reuses its entry.  An answer handed out is unchanged by a later replay
-   with other images.  Printed, not claimed: capture ms and kernel nodes
+   reuses its entry.  A float64 batch (numpy, and a card tensor) returns
+   float32 from the float32 entry, bit-identical to the float32 batch's
+   answer.  An answer handed out is unchanged by a later replay with
+   other images.  Printed, not claimed: capture ms and kernel nodes
    per batch, the b1 and b64 steps of the replay against ``_run`` (CUDA
    events and the host clock).
 
-Every path runs through the program's compiled entries: the first call at
-a signature warms up and captures, later calls replay.  Where a path's
+Every path, path 16's one-card mesh included, runs through the program's
+compiled entries: the first call at a signature warms up and captures,
+later calls replay.  Where a path's
 answers are driven through ``Net.__call__`` and ``run``, each replay is
 held against ``Program._run`` on the same batch: bit-identical on the
 integer paths (the main path, paths 3, 5, 11 and 12), elsewhere printed and
@@ -1018,6 +1033,89 @@ def host_ms(torch, fn, reps, warmup=3):
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
+def cut_graph():
+    """x -> 3x3 conv 3 -> 16 (float32) -> relu -> nonzero (the cut): a
+    program whose relu output comes from the card and whose nonzero runs
+    in the float32 executor's tail."""
+    from planer_tpu_torch.models.builder import GraphBuilder
+    rng = np.random.default_rng(SEED)
+    b = GraphBuilder(["x"])
+    w = b.weight("w", (rng.standard_normal((16, 3, 3, 3))
+                       * np.sqrt(2 / 27)).astype(np.float32))
+    bias = b.weight("b", (0.1 * rng.standard_normal(16)).astype(np.float32))
+    y = b.relu(b.conv("x", w, bias, pads=(1, 1, 1, 1)))
+    b.ret([y, b.nonzero(y)])
+    return b.build()
+
+
+def precision_phase(torch, models, requests, card):
+    """Path 18 (1): float32 precision is the program's, scoped to its
+    calls.  With both TF32 flags set on by the caller: a fresh float32
+    ResNet-18's answer at b8 is bit-identical before and after its float32
+    executor (``net.oracle``) is first built and run, and within 1e-4 of
+    that executor (TF32 would put it near 1e-3); a fresh program with a cut
+    compiles one entry at its first signature, and its first call, its
+    replay and ``_run`` agree bit for bit; after every program, executor
+    and ``lowered_text`` call the flags read on, as the caller left
+    them."""
+    from planer_tpu_torch.runtime.program import Program
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+
+    def left(what):
+        got = (cudnn.allow_tf32, matmul.allow_tf32)
+        if got != (True, True):
+            raise SystemExit(f"path 18 precision: after {what} the TF32 "
+                             f"flags read {got}, not as the caller left "
+                             f"them")
+    try:
+        net = models.resnet18(seed=SEED, device="cuda")
+        x = requests[8]
+        before = net(x)
+        left("the first call")
+        again = net(x)
+        left("a replay")
+        oracle = net(x, engine="oracle")
+        left("the float32 executor's build and run")
+        after = net(x)
+        left("a replay after the executor")
+        same = np.array_equal(before, after) and np.array_equal(before, again)
+        rel = float(np.abs(after - oracle).max() / np.abs(oracle).max())
+        log(f"path 18 precision: float32 resnet18 b8 with TF32 on in the "
+            f"caller: answers before and after net.oracle "
+            f"{'bit-identical' if same else 'DIFFER'}; program vs executor "
+            f"max|d|/max|y| {rel:.3g} (<= 1e-4); "
+            f"{len(net.program._cache)} entry ({card})")
+        if not same or rel > 1e-4 or len(net.program._cache) != 1:
+            raise SystemExit("path 18 precision: the float32 program's "
+                             "answer depends on the caller's TF32 flags")
+        prog = Program(*cut_graph(), device="cuda")
+        xc = requests[1][:, :, :64, :64]
+        y0 = prog(xc)
+        left("a program with a cut (first call)")
+        y1 = prog(xc)
+        left("a program with a cut (replay)")
+        yr = prog._run(xc)
+        left("_run")
+        text = prog.lowered_text(xc)
+        left("lowered_text")
+        n = len(prog._cache)
+        cut_same = all(torch.equal(a, b) and torch.equal(a, c)
+                       for a, b, c in zip(y0, y1, yr))
+        log(f"path 18 precision: a program with a cut at flow "
+            f"[{prog.plan.cut}] of {len(prog.graph.flow)}: {n} entry after "
+            f"its first two calls at one signature; first call, replay and "
+            f"_run {'bit-identical' if cut_same else 'DIFFER'}; "
+            f"{text.splitlines()[-1]}")
+        if n != 1 or not cut_same:
+            raise SystemExit("path 18 precision: the program with a cut "
+                             f"holds {n} entries, or its answers differ")
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+    return {"oracle_rel": rel, "cut_entries": n}
+
+
 def compile_path(torch, net, requests, st, card):
     """Path 18: the main path's compile step.  On a fresh program, the
     first call at each of b1, b8 and b64 takes a new entry, warms up (1
@@ -1067,6 +1165,27 @@ def compile_path(torch, net, requests, st, card):
         log(f"path 18 b{b}: captured in {entry.capture_ms:.3f} ms, "
             f"{entry.kernel_nodes} kernel nodes; first call, replay and "
             f"run() bit-identical to _run ({card})")
+    # a float64 batch narrows as jnp.asarray narrows it: the float32 entry
+    # (a card tensor takes its own entry, the device being in the key)
+    x8 = requests[8]
+    x64 = x8 + 1e-3 * np.random.default_rng(SEED).standard_normal(x8.shape)
+    x32 = x64.astype(np.float32)
+    n0 = len(prog._cache)
+    y64, y32 = net(x64), net(x32)
+    n1 = len(prog._cache)
+    yd32 = prog(torch.as_tensor(x32, device="cuda"))
+    n2 = len(prog._cache)
+    yd64 = prog(torch.as_tensor(x64, device="cuda"))
+    n3 = len(prog._cache)
+    narrow = (y64.dtype == np.float32 and yd64.dtype == torch.float32
+              and np.array_equal(y64, y32) and torch.equal(yd64, yd32))
+    log(f"path 18 float64 b8 (numpy, card tensor): {y64.dtype}, "
+        f"{yd64.dtype}, {'bit-identical' if narrow else 'NOT bit-identical'}"
+        f" to the float32 batch's answers; entries {n0} -> {n1} (numpy "
+        f"float32 and float64), {n2} -> {n3} (card float32 and float64)")
+    if not narrow or n1 != n0 or n3 != n2:
+        raise SystemExit("path 18: a float64 batch did not take the float32 "
+                         "entry")
     x1 = requests[1]
     entry = prog._entry(x1)
     torch.cuda.synchronize()
@@ -1253,6 +1372,7 @@ def yolo_route_path(torch, models, tops, ev, card, counters, p8, profile):
     heads tamed x0.02, conf 0.25, min_margin 0.05, hysteresis 0.7): f1 >=
     0.95 over more than 200 reference boxes, self-agreement 1.0; and,
     printed only, the f1 at 416 with 80 classes."""
+    from planer_tpu_torch.device import float32_exact
     t0 = time.perf_counter()
     net = models.yolov3(seed=SEED, device="cuda")
     net.optimize()
@@ -1260,9 +1380,6 @@ def yolo_route_path(torch, models, tops, ev, card, counters, p8, profile):
     net.astype_compute("bfloat16")
     log(f"yolov3 weight-only int8 built: {time.perf_counter() - t0:.1f} s")
     req = {b: p8["requests"][b] for b in (1, 8)}
-    # float means float32 in the agreement nets below (as in the executor)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     kw = dict(conf_thresh=0.25, min_margin=0.05, hysteresis=0.7,
               iou_hysteresis=0.7)
     tops._PALLAS_CONV1X1 = True
@@ -1284,8 +1401,10 @@ def yolo_route_path(torch, models, tops, ev, card, counters, p8, profile):
         q = tame(models.yolov3(num_classes=8, seed=SEED, device="cuda"))
         q.optimize()
         q.quantize("int8")
-        det = ev.detection_agreement(fp, q, n=4, size=256, **kw)
-        self_det = ev.detection_agreement(fp, fp, n=2, size=256, **kw)
+        # float means float32 in the agreement nets (as in the executor)
+        with float32_exact():
+            det = ev.detection_agreement(fp, q, n=4, size=256, **kw)
+            self_det = ev.detection_agreement(fp, fp, n=2, size=256, **kw)
         log(f"path 9 detection agreement (8 classes, 256, float vs "
             f"weight-only int8 with the route): {det}; self-agreement "
             f"{self_det['f1']} ({time.perf_counter() - t0:.1f} s)")
@@ -1297,7 +1416,9 @@ def yolo_route_path(torch, models, tops, ev, card, counters, p8, profile):
         q = tame(models.yolov3(seed=SEED, device="cuda"))
         q.optimize()
         q.quantize("int8")
-        det416 = ev.detection_agreement(fp, q, n=4, size=YOLO_SIDE, **kw)
+        with float32_exact():
+            det416 = ev.detection_agreement(fp, q, n=4, size=YOLO_SIDE,
+                                            **kw)
         log(f"path 9 detection agreement at {YOLO_SIDE}, 80 classes "
             f"(printed, not gated): {det416}")
         del fp, q
@@ -1596,12 +1717,12 @@ def frontend_path(torch, pt, calibrate, synthetic_images, label, path,
     synthetic images -> quantize("int8", activations="static") -> bf16;
     one stage64, the stem and block launches per forward, leg 1
     bit-identical, leg 3 against the float32 executor, and the unquantized
-    import in float32 against the module's own forward (TF32 off)."""
+    import in float32 against the module's own forward (TF32 off: the
+    module runs outside the port, under ``float32_exact``)."""
+    from planer_tpu_torch.device import float32_exact
     t0 = time.perf_counter()
     fnet = pt.read_net(path)                   # device="cuda" by default
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    with torch.no_grad():
+    with torch.no_grad(), float32_exact():
         rels = []
         for x in imgs[:2]:
             ref = module(torch.as_tensor(x, device="cuda")).cpu().numpy()
@@ -2361,18 +2482,40 @@ def dp_serving(torch, pt, net, synthetic_images, card, work):
             "bit_identical": same, "leg": leg, "img_s": rate}
 
 
+def captured_like_run(prog, x, first, again, label):
+    """A sharded program's entry at ``x``: captured (a graph with kernel
+    nodes), its first call (the warm run) and its replay bit-identical to
+    its own eager loop (``Program._run``).  Returns the entry."""
+    entry = prog._entry(x)
+    eager = prog._run(x).cpu().numpy()
+    same = np.array_equal(first, eager) and np.array_equal(again, eager)
+    log(f"{label}: captured {entry.graph is not None}, "
+        f"{entry.kernel_nodes} kernel nodes in {entry.capture_ms} ms; first "
+        f"call and replay {'' if same else 'NOT '}bit-identical to _run")
+    if entry.graph is None or not entry.kernel_nodes or not same:
+        raise SystemExit(f"{label}: not captured, or a replay is not "
+                         f"bit-identical to its _run")
+    return entry
+
+
 def mesh_paths(torch, pt, models, net, requests, st, sg, card):
     """Path 16 (2-4): the main path's net under ``shard_program`` on a
-    (2, 4) mesh of cuda:0 at b8 and b64 against the unsharded program (p99
-    <= 0.02, argmax on decisive logits), with no stage64 or stagen launch
-    over the sharded calls; UNet (base 32, depth 4, float32, TF32 off)
-    under (2, 4) ``shard_program`` at b2 of 512 within 1e-4 of the
-    unsharded program, under (1, 4) ``shard_spatial`` at b1 of 512 within
-    1e-5, and ``spatial_conv`` within 1e-4 of one conv of the whole image;
-    ``multihost.initialize`` forming an nccl world of one."""
+    (2, 4) mesh of cuda:0 at b8 and b64: each entry captured (its first
+    call the warm run, the second a replay), both bit-identical to the
+    sharded ``_run``, an answer handed out unchanged by a later replay,
+    against the unsharded program (p99 <= 0.02, argmax on decisive
+    logits), with no stage64 or stagen launch over the sharded calls;
+    replay, ``_run`` and unsharded steps printed without a claim.  UNet
+    (base 32, depth 4, float32) under (2, 4) ``shard_program`` at b2 of 512
+    and under (1, 4) ``shard_spatial`` at b1 of 512, each captured and its
+    replay bit-identical to its ``_run``, within 1e-4 and 1e-5 of the
+    unsharded program, and ``spatial_conv`` within 1e-4 of one conv of the
+    whole image (that conv under ``float32_exact``, as the port's own
+    calls run); ``multihost.initialize`` forming an nccl world of one."""
     import socket
     import torch.distributed as dist
     import torch.nn.functional as F
+    from planer_tpu_torch.device import float32_exact
     from planer_tpu_torch.parallel import make_mesh, shard_program
     from planer_tpu_torch.parallel.multihost import initialize
     from planer_tpu_torch.parallel.spatial import shard_spatial, spatial_conv
@@ -2384,62 +2527,81 @@ def mesh_paths(torch, pt, models, net, requests, st, sg, card):
     reqs = {b: requests[b] for b in (8, 64)}
     st.LAUNCHES.clear()
     sg.LAUNCHES.clear()
-    sharded = {b: snet(x) for b, x in reqs.items()}
+    first = {b: snet(x) for b, x in reqs.items()}       # warm run, capture
+    sharded = {b: snet(x) for b, x in reqs.items()}     # replays
     check_counts("path 16 stage64 and stagen launches under the (2, 4) "
                  "mesh", {**st.LAUNCHES, **sg.LAUNCHES}, {})
+    out["graphs"] = {}
+    for b, x in reqs.items():
+        entry = captured_like_run(prog, x, first[b], sharded[b],
+                                  f"path 16 DP x TP (2, 4) b{b}")
+        out["graphs"][b] = (entry.kernel_nodes, entry.capture_ms)
+    if len(prog._cache) != len(reqs):
+        raise SystemExit(f"path 16: {len(prog._cache)} entries for "
+                         f"{len(reqs)} signatures")
+    xa = torch.as_tensor(reqs[8], device="cuda")
+    ya = prog(xa)
+    keep = ya.clone()
+    yb = prog(torch.as_tensor(np.ascontiguousarray(reqs[8][::-1]),
+                              device="cuda"))
+    torch.cuda.synchronize()
+    if not torch.equal(ya, keep) or torch.equal(ya, yb):
+        raise SystemExit("path 16: a later replay changed an earlier answer")
+    log("path 16 DP x TP: an answer handed out is unchanged by a later "
+        "replay")
     ref = {b: net(x) for b, x in reqs.items()}
     out["leg"] = agreement([(sharded[b], ref[b]) for b in reqs],
-                           "path 16 DP x TP (2, 4) of cuda:0 vs the "
-                           "unsharded program", 0.02)
+                           "path 16 DP x TP (2, 4) of cuda:0 (replayed) vs "
+                           "the unsharded program", 0.02)
     steps = {}
     for b, x in reqs.items():
         xd = torch.as_tensor(x, device="cuda")
-        steps[b] = (cuda_ms(lambda: prog(xd), 3, warmup=1),
-                    cuda_ms(lambda: net.program(xd), 10, warmup=2))
-        log(f"path 16 DP x TP step b{b}: sharded {steps[b][0]:.4f} ms, "
-            f"unsharded {steps[b][1]:.4f} ms (CUDA events; no claim: "
-            f"8 shards of one card; {card})")
+        steps[b] = {"replay": cuda_ms(lambda: prog(xd), 10, warmup=2),
+                    "run": cuda_ms(lambda: prog._run(xd), 3, warmup=1),
+                    "unsharded": cuda_ms(lambda: net.program(xd), 10,
+                                         warmup=2)}
+        log(f"path 16 DP x TP step b{b}: replay {steps[b]['replay']:.4f} ms,"
+            f" _run {steps[b]['run']:.4f} ms, unsharded replay "
+            f"{steps[b]['unsharded']:.4f} ms (CUDA events; no claim: 8 "
+            f"shards of one card; {card})")
     out["steps"] = steps
     del snet, prog
 
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        rng = np.random.default_rng(7)
-        unet = models.unet(in_ch=1, out_ch=1, base=32, depth=4, seed=SEED,
-                           device="cuda")
-        x2 = rng.standard_normal((2, 1, UNET_SIDE, UNET_SIDE)).astype(
-            np.float32)
-        ref2 = unet(x2)
-        shard_program(unet, mesh)
-        got2 = unet(x2)
-        d_tp = float(np.abs(got2 - ref2).max())
-        unet = models.unet(in_ch=1, out_ch=1, base=32, depth=4, seed=SEED,
-                           device="cuda")
-        x1 = x2[:1]
-        ref1 = unet(x1)
-        shard_spatial(unet, make_mesh((1, 4), ("data", "model"),
-                                      devices=["cuda:0"] * 4))
-        got1 = unet(x1)
-        d_sp = float(np.abs(got1 - ref1).max())
-        xc = torch.as_tensor(rng.standard_normal(
-            (1, 64, UNET_SIDE, UNET_SIDE)), dtype=torch.float32,
-            device="cuda")
-        K = torch.as_tensor(rng.standard_normal((64, 64, 3, 3))
-                            * np.sqrt(2 / 576), dtype=torch.float32,
-                            device="cuda")
-        B = torch.as_tensor(0.1 * rng.standard_normal(64),
-                            dtype=torch.float32, device="cuda")
-        sc = spatial_conv(xc, K, B, make_mesh((1, 4), ("data", "model"),
-                                              devices=["cuda:0"] * 4))
+    rng = np.random.default_rng(7)
+    unet = models.unet(in_ch=1, out_ch=1, base=32, depth=4, seed=SEED,
+                       device="cuda")
+    x2 = rng.standard_normal((2, 1, UNET_SIDE, UNET_SIDE)).astype(np.float32)
+    ref2 = unet(x2)
+    tp = shard_program(unet, mesh)
+    first2 = unet(x2)
+    got2 = unet(x2)
+    e_tp = captured_like_run(tp, x2, first2, got2,
+                             "path 16 UNet shard_program (2, 4) b2")
+    d_tp = float(np.abs(got2 - ref2).max())
+    unet = models.unet(in_ch=1, out_ch=1, base=32, depth=4, seed=SEED,
+                       device="cuda")
+    x1 = x2[:1]
+    ref1 = unet(x1)
+    sp = shard_spatial(unet, make_mesh((1, 4), ("data", "model"),
+                                       devices=["cuda:0"] * 4))
+    first1 = unet(x1)
+    got1 = unet(x1)
+    e_sp = captured_like_run(sp, x1, first1, got1,
+                             "path 16 UNet shard_spatial (1, 4) b1")
+    d_sp = float(np.abs(got1 - ref1).max())
+    xc = torch.as_tensor(rng.standard_normal(
+        (1, 64, UNET_SIDE, UNET_SIDE)), dtype=torch.float32, device="cuda")
+    K = torch.as_tensor(rng.standard_normal((64, 64, 3, 3))
+                        * np.sqrt(2 / 576), dtype=torch.float32,
+                        device="cuda")
+    B = torch.as_tensor(0.1 * rng.standard_normal(64), dtype=torch.float32,
+                        device="cuda")
+    sc = spatial_conv(xc, K, B, make_mesh((1, 4), ("data", "model"),
+                                          devices=["cuda:0"] * 4))
+    with float32_exact():
         d_sc = float((sc - F.conv2d(xc, K, B, padding=1)).abs().max())
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, \
-            torch.backends.cudnn.allow_tf32 = tf32
-    log(f"path 16 UNet base 32 depth 4 float32 at {UNET_SIDE}: (2, 4) "
-        f"shard_program b2 max|d| {d_tp:.3g} (<= 1e-4), (1, 4) "
+    log(f"path 16 UNet base 32 depth 4 float32 at {UNET_SIDE}, replayed: "
+        f"(2, 4) shard_program b2 max|d| {d_tp:.3g} (<= 1e-4), (1, 4) "
         f"shard_spatial b1 max|d| {d_sp:.3g} (<= 1e-5); spatial_conv 64 -> "
         f"64 3x3 max|d| {d_sc:.3g} (<= 1e-4) ({card})")
     if not (np.allclose(got2, ref2, rtol=1e-4, atol=1e-4)
@@ -2447,7 +2609,9 @@ def mesh_paths(torch, pt, models, net, requests, st, sg, card):
             and d_sc <= 1e-4):
         raise SystemExit("path 16: a sharded UNet or spatial_conv is off "
                          "its bound")
-    out["unet"] = {"tp": d_tp, "spatial": d_sp, "spatial_conv": d_sc}
+    out["unet"] = {"tp": d_tp, "spatial": d_sp, "spatial_conv": d_sc,
+                   "graphs": {"tp": e_tp.kernel_nodes,
+                              "spatial": e_sp.kernel_nodes}}
 
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -2612,7 +2776,9 @@ def run_examples(card):
 
 def examples_path(torch, models, counters, card):
     """Path 17 (2-4): each example's ``main(device="cuda")`` in this
-    process, held against a reference on the same inputs with TF32 off:
+    process, as a user calls it (the harness sets no TF32 flag: the port's
+    programs and executor hold float32 themselves), held against a
+    reference on the same inputs:
     classify's logits against the float32 executor on the same dequantized
     weights (max|d|/max|y| <= 0.05, the top-5 ids equal where the gap
     decides them); detect's heads (1e-4 of each head's max|y|), score
@@ -2629,132 +2795,124 @@ def examples_path(torch, models, counters, card):
     from planer_tpu_torch.utils.tile import grid_slice
     for c in counters:
         c.clear()
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     out = {}
-    try:
-        # classify: weight-only int8, bf16, against the float32 executor
-        ex = load_example("torch_classify_resnet.py")
-        t0 = time.perf_counter()
-        logits = ex.main("cuda")
-        t_main = time.perf_counter() - t0
-        net = models.resnet18(device="cuda")
-        net.quantize("int8").astype_compute("bfloat16")
-        x = next(synthetic_images(1, (3, 224, 224), seed=7, batch=1))
-        net(x)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        net(x)
-        t_fwd = time.perf_counter() - t0
-        ref = net(x, engine="oracle")[0]
-        rel = float(np.abs(logits - ref).max() / np.abs(ref).max())
-        decided, bad = top5_decided(logits, ref)
-        log(f"path 17 classify: logits vs float32 executor max|d|/max|y| "
-            f"{rel:.6g} (<= 0.05), top-5 {np.argsort(-logits)[:5].tolist()}"
-            f", ranks decided {decided}; main() {1e3 * t_main:.1f} ms, "
-            f"warm forward {1e3 * t_fwd:.2f} ms on the host clock ({card})")
-        if not np.isfinite(logits).all() or logits.shape != (1000,) \
-                or rel > 0.05 or bad:
-            raise SystemExit(f"path 17 classify: rel {rel}, top-5 ranks "
-                             f"{bad} differ")
-        out["classify"] = {"rel": rel, "decided": decided,
-                           "main_ms": 1e3 * t_main, "fwd_ms": 1e3 * t_fwd}
-        del net
+    # classify: weight-only int8, bf16, against the float32 executor
+    ex = load_example("torch_classify_resnet.py")
+    t0 = time.perf_counter()
+    logits = ex.main("cuda")
+    t_main = time.perf_counter() - t0
+    net = models.resnet18(device="cuda")
+    net.quantize("int8").astype_compute("bfloat16")
+    x = next(synthetic_images(1, (3, 224, 224), seed=7, batch=1))
+    net(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net(x)
+    t_fwd = time.perf_counter() - t0
+    ref = net(x, engine="oracle")[0]
+    rel = float(np.abs(logits - ref).max() / np.abs(ref).max())
+    decided, bad = top5_decided(logits, ref)
+    log(f"path 17 classify: logits vs float32 executor max|d|/max|y| "
+        f"{rel:.6g} (<= 0.05), top-5 {np.argsort(-logits)[:5].tolist()}"
+        f", ranks decided {decided}; main() {1e3 * t_main:.1f} ms, "
+        f"warm forward {1e3 * t_fwd:.2f} ms on the host clock ({card})")
+    if not np.isfinite(logits).all() or logits.shape != (1000,) \
+            or rel > 0.05 or bad:
+        raise SystemExit(f"path 17 classify: rel {rel}, top-5 ranks "
+                         f"{bad} differ")
+    out["classify"] = {"rel": rel, "decided": decided,
+                       "main_ms": 1e3 * t_main, "fwd_ms": 1e3 * t_fwd}
+    del net
 
-        # detect: raw heads at 416, against the CPU run
-        ex = load_example("torch_detect_yolov3.py")
-        t0 = time.perf_counter()
-        dets = ex.main("cuda", DETECT_SIZE)
-        t_main = time.perf_counter() - t0
-        dets_cpu = ex.main("cpu", DETECT_SIZE)
-        img = next(synthetic_images(1, (3, DETECT_SIZE, DETECT_SIZE), seed=3,
-                                    batch=1))
-        heads = models.yolov3(device="cuda")(img)
-        heads_cpu = models.yolov3(device="cpu")(img)
-        hrel = [float(np.abs(a - b).max() / np.abs(b).max())
-                for a, b in zip(heads, heads_cpu)]
-        t0 = time.perf_counter()
-        _, cands = yolo_post.detect(lambda _: heads, img,
+    # detect: raw heads at 416, against the CPU run
+    ex = load_example("torch_detect_yolov3.py")
+    t0 = time.perf_counter()
+    dets = ex.main("cuda", DETECT_SIZE)
+    t_main = time.perf_counter() - t0
+    dets_cpu = ex.main("cpu", DETECT_SIZE)
+    img = next(synthetic_images(1, (3, DETECT_SIZE, DETECT_SIZE), seed=3,
+                                batch=1))
+    heads = models.yolov3(device="cuda")(img)
+    heads_cpu = models.yolov3(device="cpu")(img)
+    hrel = [float(np.abs(a - b).max() / np.abs(b).max())
+            for a, b in zip(heads, heads_cpu)]
+    t0 = time.perf_counter()
+    _, cands = yolo_post.detect(lambda _: heads, img,
+                                conf_thresh=DETECT_CONF,
+                                return_candidates=True)
+    t_host = time.perf_counter() - t0
+    _, cands_cpu = yolo_post.detect(lambda _: heads_cpu, img,
                                     conf_thresh=DETECT_CONF,
                                     return_candidates=True)
-        t_host = time.perf_counter() - t0
-        _, cands_cpu = yolo_post.detect(lambda _: heads_cpu, img,
-                                        conf_thresh=DETECT_CONF,
-                                        return_candidates=True)
-        n_filtered, fprob = filtered_agree(
-            yolo_post.decode_heads(heads)[0],
-            yolo_post.decode_heads(heads_cpu)[0])
-        n_cmp, n_out, dprob = detections_agree(dets[0], dets_cpu[0],
-                                               cands_cpu[0])
-        log(f"path 17 detect: heads max|d|/max|y| vs the CPU run "
-            f"{[f'{v:.3g}' for v in hrel]} (<= 1e-4), max|y| "
-            f"{[f'{float(np.abs(h).max()):.4g}' for h in heads_cpu]}; "
-            f"{n_filtered} of {yolo_post.decode_heads(heads_cpu).shape[1]} "
-            f"boxes pass the score filter, {len(cands_cpu[0])} the size "
-            f"filter; {len(dets[0])} detections on the card, "
-            f"{len(dets_cpu[0])} on the CPU, {n_cmp} compared, {n_out} left "
-            f"out near a threshold; main() {1e3 * t_main:.1f} ms, detect's "
-            f"host part {1e3 * t_host:.2f} ms over {len(cands[0])} "
-            f"candidates on the host clock ({card})")
-        if max(hrel) > 1e-4 or fprob or dprob or len(dets) != 1:
-            raise SystemExit(f"path 17 detect: heads {hrel}, {fprob + dprob}")
-        out["detect"] = {"heads": hrel, "filtered": n_filtered,
-                         "dets": len(dets[0]), "main_ms": 1e3 * t_main,
-                         "host_ms": 1e3 * t_host}
+    n_filtered, fprob = filtered_agree(
+        yolo_post.decode_heads(heads)[0],
+        yolo_post.decode_heads(heads_cpu)[0])
+    n_cmp, n_out, dprob = detections_agree(dets[0], dets_cpu[0],
+                                           cands_cpu[0])
+    log(f"path 17 detect: heads max|d|/max|y| vs the CPU run "
+        f"{[f'{v:.3g}' for v in hrel]} (<= 1e-4), max|y| "
+        f"{[f'{float(np.abs(h).max()):.4g}' for h in heads_cpu]}; "
+        f"{n_filtered} of {yolo_post.decode_heads(heads_cpu).shape[1]} "
+        f"boxes pass the score filter, {len(cands_cpu[0])} the size "
+        f"filter; {len(dets[0])} detections on the card, "
+        f"{len(dets_cpu[0])} on the CPU, {n_cmp} compared, {n_out} left "
+        f"out near a threshold; main() {1e3 * t_main:.1f} ms, detect's "
+        f"host part {1e3 * t_host:.2f} ms over {len(cands[0])} "
+        f"candidates on the host clock ({card})")
+    if max(hrel) > 1e-4 or fprob or dprob or len(dets) != 1:
+        raise SystemExit(f"path 17 detect: heads {hrel}, {fprob + dprob}")
+    out["detect"] = {"heads": hrel, "filtered": n_filtered,
+                     "dets": len(dets[0]), "main_ms": 1e3 * t_main,
+                     "host_ms": 1e3 * t_host}
 
-        # segment: UNet tiled over 700 x 900, against the CPU run
-        ex = load_example("torch_segment_unet_tiled.py")
+    # segment: UNet tiled over 700 x 900, against the CPU run
+    ex = load_example("torch_segment_unet_tiled.py")
+    t0 = time.perf_counter()
+    mask = ex.main("cuda")
+    t_main = time.perf_counter() - t0
+    mask_cpu = ex.main("cpu")
+    wins = len(grid_slice(700, 900, 256, 256, 24))
+    mrel = float(np.abs(mask - mask_cpu).max() / np.abs(mask_cpu).max())
+    log(f"path 17 segment: mask {mask.shape}, max|d|/max|y| vs the CPU "
+        f"run {mrel:.3g} (<= 1e-4); main() {1e3 * t_main:.1f} ms for "
+        f"{wins} windows of 256 on the host clock ({card})")
+    if mask.shape != (700, 900) or not np.isfinite(mask).all() \
+            or mrel > 1e-4:
+        raise SystemExit(f"path 17 segment: {mask.shape}, rel {mrel}")
+    out["segment"] = {"rel": mrel, "windows": wins,
+                      "main_ms": 1e3 * t_main}
+
+    # serve: 32 requests, answers against net(x) at b1
+    ex = load_example("torch_serve_continuous.py")
+    rng = np.random.default_rng(17)
+    imgs = [rng.standard_normal((3, 64, 64)).astype(np.float32)
+            for _ in range(32)]
+    probes = []
+    probe = ServingEngine._spatial_signature
+    ServingEngine._spatial_signature = \
+        lambda self, shape: probes.append(shape) or probe(self, shape)
+    try:
         t0 = time.perf_counter()
-        mask = ex.main("cuda")
+        answers, stats = ex.main("cuda", imgs)
         t_main = time.perf_counter() - t0
-        mask_cpu = ex.main("cpu")
-        wins = len(grid_slice(700, 900, 256, 256, 24))
-        mrel = float(np.abs(mask - mask_cpu).max() / np.abs(mask_cpu).max())
-        log(f"path 17 segment: mask {mask.shape}, max|d|/max|y| vs the CPU "
-            f"run {mrel:.3g} (<= 1e-4); main() {1e3 * t_main:.1f} ms for "
-            f"{wins} windows of 256 on the host clock ({card})")
-        if mask.shape != (700, 900) or not np.isfinite(mask).all() \
-                or mrel > 1e-4:
-            raise SystemExit(f"path 17 segment: {mask.shape}, rel {mrel}")
-        out["segment"] = {"rel": mrel, "windows": wins,
-                          "main_ms": 1e3 * t_main}
-
-        # serve: 32 requests, answers against net(x) at b1
-        ex = load_example("torch_serve_continuous.py")
-        rng = np.random.default_rng(17)
-        imgs = [rng.standard_normal((3, 64, 64)).astype(np.float32)
-                for _ in range(32)]
-        probes = []
-        probe = ServingEngine._spatial_signature
-        ServingEngine._spatial_signature = \
-            lambda self, shape: probes.append(shape) or probe(self, shape)
-        try:
-            t0 = time.perf_counter()
-            answers, stats = ex.main("cuda", imgs)
-            t_main = time.perf_counter() - t0
-        finally:
-            ServingEngine._spatial_signature = probe
-        net = models.resnet18(num_classes=100, device="cuda")
-        srel = [float(np.abs(a - r).max() / np.abs(r).max())
-                for a, r in zip(answers, (net(im[None])[0] for im in imgs))]
-        rows = stats["requests"] / max(1e-9, 1 - stats["pad_fraction"])
-        log(f"path 17 serve: {len(answers)} answers, max|d|/max|y| vs net(x)"
-            f" at b1 max {max(srel):.3g} (<= 1e-4); stats {stats}; "
-            f"{len(probes)} spatial probes; main() {1e3 * t_main:.1f} ms on "
-            f"the host clock ({card})")
-        if len(answers) != 32 or max(srel) > 1e-4 or probes \
-                or stats["requests"] != 32 \
-                or not 32 <= round(rows) <= 8 * stats["batches"]:
-            raise SystemExit(f"path 17 serve: {len(answers)} answers, rel "
-                             f"{max(srel)}, {len(probes)} probes, {stats}")
-        out["serve"] = {"rel": max(srel), "stats": stats,
-                        "main_ms": 1e3 * t_main}
-        del net
     finally:
-        torch.backends.cuda.matmul.allow_tf32, \
-            torch.backends.cudnn.allow_tf32 = tf32
+        ServingEngine._spatial_signature = probe
+    net = models.resnet18(num_classes=100, device="cuda")
+    srel = [float(np.abs(a - r).max() / np.abs(r).max())
+            for a, r in zip(answers, (net(im[None])[0] for im in imgs))]
+    rows = stats["requests"] / max(1e-9, 1 - stats["pad_fraction"])
+    log(f"path 17 serve: {len(answers)} answers, max|d|/max|y| vs net(x)"
+        f" at b1 max {max(srel):.3g} (<= 1e-4); stats {stats}; "
+        f"{len(probes)} spatial probes; main() {1e3 * t_main:.1f} ms on "
+        f"the host clock ({card})")
+    if len(answers) != 32 or max(srel) > 1e-4 or probes \
+            or stats["requests"] != 32 \
+            or not 32 <= round(rows) <= 8 * stats["batches"]:
+        raise SystemExit(f"path 17 serve: {len(answers)} answers, rel "
+                         f"{max(srel)}, {len(probes)} probes, {stats}")
+    out["serve"] = {"rel": max(srel), "stats": stats,
+                    "main_ms": 1e3 * t_main}
+    del net
 
     # the zoo package: the .pla round trip in a cache dir of its own
     import tempfile
@@ -2848,7 +3006,8 @@ def main():
         profile_steps(torch, net.program, requests, card, args.profile)
 
     # ------------------------------------- path 18: the compile step
-    p18 = compile_path(torch, net, requests, st, card)
+    p18 = precision_phase(torch, models, requests, card)
+    p18.update(compile_path(torch, net, requests, st, card))
 
     # -------------------------------------- stagen kernel, paths 2 and 3
     from planer_tpu_torch.ops.kernels import stagen as sg
@@ -3217,11 +3376,12 @@ def main():
         f"{p16['leg'][0]:.6g}, {p16['bit_identical']} of 112 bit-identical, "
         f"{p16['img_s']:.1f} img/s, dp_size after the kill "
         f"{p16['report']['dp_size_after']}; DP x TP p99 "
-        f"{p16m['leg'][0]:.6g}, steps (sharded, unsharded) "
-        f"{p16m['steps']} ms; UNet max|d| {p16m['unet']} (printed, no "
-        f"claim)")
-    log(f"path 18 (compile step): capture ms {p18['capture_ms']}, kernel "
-        f"nodes {p18['kernel_nodes']}; steps replay / eager (CUDA events) "
+        f"{p16m['leg'][0]:.6g}, kernel nodes and capture ms "
+        f"{p16m['graphs']}, steps {p16m['steps']} ms; UNet {p16m['unet']} "
+        f"(printed, no claim)")
+    log(f"path 18 (compile step): float32 program vs executor with TF32 "
+        f"on in the caller {p18['oracle_rel']:.3g}; capture ms "
+        f"{p18['capture_ms']}, kernel nodes {p18['kernel_nodes']}; steps replay / eager (CUDA events) "
         + "; ".join(f"b{b} {r['replay_ms']:.4f} / {r['eager_ms']:.4f} ms"
                     for b, r in p18["steps"].items())
         + " (printed, no claim)")

@@ -98,9 +98,14 @@ def _torch_dtype(dtype):
 def asarray(arr, dtype=None, device="cuda", **kw):
     """A torch tensor of ``arr`` (``torch.as_tensor``) on the CUDA card, or
     on ``device`` where the caller names one (``device="cpu"``).  ``dtype``
-    may be a torch dtype, a numpy one or a dtype name.
-    Raises where no card is available and none was named."""
+    may be a torch dtype, a numpy one or a dtype name, and is kept as
+    given; without one, the dtype is ``jnp.asarray``'s with 64-bit mode
+    off: float64 becomes float32, and int64 (a Python int list among them)
+    int32.  Raises where no card is available and none was named."""
     import torch
-    from .device import resolve_device
-    return torch.as_tensor(arr, dtype=_torch_dtype(dtype),
-                           device=resolve_device(device), **kw)
+    from .device import narrow_64bit, resolve_device
+    dev = resolve_device(device)
+    t = torch.as_tensor(arr, dtype=_torch_dtype(dtype), **kw)
+    if dtype is None:
+        t = narrow_64bit(t)
+    return t.to(dev)

@@ -87,7 +87,7 @@ def fallback_dense(x2d, K: QTensor, B=None):
     f32 accumulation, result cast to x's dtype, bias added after the cast."""
     Kd = K.dequant(x2d.dtype)
     # bf16 operands are exact in f32, so an f32 product is the f32-accumulated
-    # bf16 dot (TF32 is off for matmuls by default and in the executor)
+    # bf16 dot (TF32 is off inside every program and executor call)
     y = torch.matmul(x2d.float(), Kd.float().t()).to(x2d.dtype)
     if B is not None:
         y = y + B.reshape(1, -1).to(y.dtype)

@@ -443,7 +443,7 @@ def dense(x, K, B=None, shp=None, plain=False, branch=None):
         from .kernels import gemm
         return gemm.dense_q(x, K, B, plain=plain, branch=branch)
     # bf16 operands are exact in f32, so an f32 product is the f32-accumulated
-    # bf16 dot (TF32 is off for matmuls by default and in the executor)
+    # bf16 dot (TF32 is off inside every program and executor call)
     y = torch.matmul(x.float(), K.to(x.dtype).float().t()).to(x.dtype)
     if B is not None:
         y = y + B.reshape(1, -1).to(y.dtype)

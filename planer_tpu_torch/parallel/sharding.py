@@ -31,6 +31,13 @@ shape, else it runs on the gathered batch.  The fused stages run their
 decomposed chains (``FUSED_OVERRIDES``), per data shard and with their
 whole weights: a chain of convs cannot be split on its first conv's output
 channels without a gather after each conv.
+
+A program whose mesh repeats one card (``cuda:0`` x 8) captures its step
+as one CUDA graph per signature, as an unsharded program does: every
+shard's kernels, the gathers and the outputs' gather onto the first
+device.  Weights, their slices and the per-shard caches are placed on the
+warm run; one first needed inside a capture raises.  A mesh of distinct
+cards runs its entries uncaptured.
 """
 from __future__ import annotations
 
@@ -334,6 +341,15 @@ def _place(v, dev):
     return v
 
 
+def _operand(v, p, spec, dev):
+    """Operand ``p`` of an op on ``dev``; a host operand (``spec.host_args``,
+    handed over on the host by the program) stays on the host."""
+    if p in spec.host_args and isinstance(v, torch.Tensor) \
+            and v.device.type == "cpu":
+        return v
+    return _place(v, dev)
+
+
 def _grid(mesh: Mesh, row_axis, col_axis) -> np.ndarray:
     """The mesh as a (rows, columns) array of devices: ``row_axis`` down,
     ``col_axis`` across (an absent or None axis has size 1), the first
@@ -355,10 +371,8 @@ class ShardedProgram(Program):
     ``tp_axis`` (see the module docstring).  The float32 executor
     (``_executor``, the host tail, ``cost_analysis``) is the base
     program's, on the mesh's first device.  Its entries fold their statics
-    per signature like the base program's but run uncaptured: one CUDA
-    graph cannot hold a program over several devices."""
-
-    _capturable = False
+    per signature like the base program's; see ``_captures`` for when they
+    run as CUDA graphs."""
 
     def __init__(self, graph, weights, *, mesh: Mesh, tp_axis="model",
                  batch_axis="data", col_axis=None, **kw):
@@ -402,19 +416,44 @@ class ShardedProgram(Program):
             if 1 in axes:
                 self._tp[ri] = axes
 
+    def _captures(self) -> bool:
+        """On the card, where every device of the grid is the program's
+        own (a mesh of one card repeated): one CUDA graph holds the step.
+        Over distinct cards the entries run uncaptured."""
+        return self.device.type == "cuda" and all(
+            d == self.device for d in self.grid.flat)
+
     # ---------------------------------------------------------- placement
     def _dev(self, d: int, m: int = 0) -> torch.device:
         return self.grid[d, m]
 
+    def _first_use(self, what):
+        """Refuse to make ``what`` inside a CUDA graph capture: the capture
+        would record its copies once and the warm run makes everything a
+        step uses."""
+        if tops._capturing(self.device):
+            raise RuntimeError(f"{what} first needed inside a CUDA graph "
+                               f"capture; the warm run places it")
+
+    def _kept(self, key, make):
+        """``make()`` (a weight or a slice of one on a device), made once
+        and kept under ``key``."""
+        v = self._placed.get(key)
+        if v is None:
+            self._first_use(f"weight {key}")
+            v = self._placed[key] = make()
+        return v
+
     def _on(self, key, leaf, dev):
         """``leaf`` on ``dev``, moved once and kept."""
-        k = (key, dev)
-        if k not in self._placed:
-            self._placed[k] = _place(leaf, dev)
-        return self._placed[k]
+        return self._kept((key, dev), lambda: _place(leaf, dev))
 
     def _dcache(self, ri, d):
-        return self._dcaches.setdefault((ri, d), {})
+        c = self._dcaches.get((ri, d))
+        if c is None:
+            self._first_use(f"the cache of application {ri} on shard {d}")
+            c = self._dcaches[(ri, d)] = {}
+        return c
 
     # ------------------------------------------------------ program steps
     def _bind_input(self, x):
@@ -607,15 +646,12 @@ class ShardedProgram(Program):
                 if isinstance(v, Split):
                     v = v.parts[i]
                 if p in axes:
-                    key = ((ri, p, m), mdev)
-                    if key not in self._placed:
-                        self._placed[key] = _place(
-                            _slice(v, axes[p], m, n_model), mdev)
-                    v = self._placed[key]
+                    v = self._kept(((ri, p, m), mdev), lambda: _place(
+                        _slice(v, axes[p], m, n_model), mdev))
                 elif (ri, p) in self._wargs:
                     v = self._on((ri, p), v, mdev)
                 else:
-                    v = _place(v, mdev)
+                    v = _operand(v, p, spec, mdev)
                 a.append(v)
             if tp and _TP_OPS[layer.op][1]:
                 a[0] = _slice(a[0], 1, m, n_model)

@@ -22,7 +22,8 @@ field at window borders:
     continues batch-split or whole (``sharding.ShardedProgram``'s rules).
 
 :func:`halo_exchange` and :func:`spatial_conv` are the explicit building
-blocks, on a list of H shards.
+blocks, on a list of H shards.  On a mesh of one card repeated the
+program's step replays as one CUDA graph, as ``ShardedProgram``'s does.
 """
 from __future__ import annotations
 
@@ -30,10 +31,11 @@ import dataclasses
 
 import torch
 
+from ..device import float32_exact
 from ..ops import torch_ops as tops
 from ..ops.padding import resolve_conv_pads, resolve_pool_pads
 from .sharding import (FUSED_OVERRIDES, Mesh, ShardedProgram, Split, _build,
-                       _floats, _place, _grid)
+                       _floats, _operand, _place, _grid)
 
 __all__ = ["shard_spatial", "halo_exchange"]
 
@@ -211,7 +213,7 @@ class SpatialProgram(ShardedProgram):
                     elif (ri, p) in self._wargs:
                         v = self._on((ri, p), v, dev)
                     else:
-                        v = _place(v, dev)
+                        v = _operand(v, p, spec, dev)
                     a.append(v)
                 k = {**kw, "cache": self._dcache(ri, (d, j))} \
                     if spec.cached else kw
@@ -257,7 +259,8 @@ class SpatialProgram(ShardedProgram):
                 a = [self._take(x, i, lo, hi, dev)]
                 for p, v in enumerate(args[1:], 1):
                     a.append(self._on((ri, p), v, dev)
-                             if (ri, p) in self._wargs else _place(v, dev))
+                             if (ri, p) in self._wargs
+                             else _operand(v, p, spec, dev))
                 k = {**kw, **route, **local_kw(o0, o1, lo, hi, extra)}
                 if spec.cached:
                     k["cache"] = self._dcache(ri, (d, j))
@@ -370,11 +373,13 @@ def halo_exchange(shards: list, halo: int) -> list:
     return out
 
 
+@float32_exact()
 def spatial_conv(x, K, B, mesh: Mesh, axis: str = "model"):
     """An explicitly halo-exchanged 'same' conv (odd square kernel) on an
     input split over H on ``axis``: split x, exchange halos, run a conv
     valid in H with pads (0, halo, 0, halo) per shard, on the shard's
-    device, and join the result on x's device."""
+    device, and join the result on x's device.  A float32 conv runs in
+    float32, not TF32, as in a program."""
     devs = _grid(mesh, None, axis)[0]
     halo = int(K.shape[2]) // 2
     shards = [_place(p, d)

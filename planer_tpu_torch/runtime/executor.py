@@ -6,9 +6,11 @@ environment, layer chains threading through the edge dst, eager freeing of
 dead tensors.  Every op runs its registry ``oracle_fn``: float32 semantics
 on dequantized weights, quantization annotations ignored.  It is the
 correctness oracle of the quantized program and the engine of calibration.
-
-On a CUDA device it turns TF32 off for both convolutions and matmuls, so
-float32 means float32 (cuDNN convolutions default to TF32).
+``run`` and ``run_range`` hold float32 precision (``device.float32_exact``:
+TF32 off for convolutions and matmuls, the caller's setting restored
+after), so float32 means float32 on the card, ``trace_cb`` included.  Its
+inputs are kept as they are, float64 included, as the JAX package's numpy
+executor keeps them (``np.asarray``); only the program narrows them.
 
 With ``timed`` set (``timeit("start")`` sets it), ``timer[op]``
 accumulates the seconds each opcode took, the reference's per-op-type
@@ -26,7 +28,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import float32_exact, resolve_device
 from ..ir import Graph
 from ..registry import get_op
 
@@ -43,9 +45,6 @@ class Executor:
     def __init__(self, graph: Graph, weights: list, device="cuda"):
         self.graph = graph
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
         self.weights = [_as_tensor(w, self.device) for w in weights]
         self.life = graph.liveness()
         self._layers = graph.layer_map()
@@ -54,6 +53,7 @@ class Executor:
 
     # ------------------------------------------------------------------ API
     @torch.no_grad()
+    @float32_exact()
     def run(self, *inputs, debug: bool = False,
             trace_cb: Callable | None = None):
         env = self.initial_env(*inputs)
@@ -83,6 +83,7 @@ class Executor:
             return torch.as_tensor(v, device=self.device)
         return v
 
+    @float32_exact()
     def run_range(self, env: dict[str, Any], start: int, stop: int,
                   debug: bool = False, free: bool = True,
                   trace_cb: Callable | None = None) -> dict[str, Any]:

@@ -39,8 +39,9 @@ The program keeps the tracer's decisions and its compile step:
    delta the capture recorded, so they keep counting what the card ran.  A
    capture that fails raises with the layer it reached; nothing runs
    eagerly in its place.  The first call at a key answers from its warm
-   run.  A program over several devices (``parallel``) and a program on
-   the CPU run the resolved list uncaptured.
+   run.  A program on the CPU, and a ``parallel`` program over distinct
+   cards, run the resolved list uncaptured; a ``parallel`` program whose
+   mesh repeats one card captures like any other.
 
 ``_run`` is the eager loop the entry is resolved from (every record folded
 again at every call): the reference a caller holds the compiled entry
@@ -52,10 +53,17 @@ trace no scope is entered.  ``lowered_text`` is the text of the entry at a
 signature; ``cost_analysis`` counts the work of the graph at given input
 shapes, the counterpart of XLA's cost analysis of the compiled program.
 
-The compute-dtype policy is the tracer's: ``conv`` and ``add`` get the
-program compute dtype injected (their int8 fast paths cannot infer it),
-int8 graph inputs are lifted to float at the boundary (user values, never
-activation codes), and outputs in the compute dtype leave as float32.
+The compute-dtype policy is the tracer's: inputs narrow at the boundary
+as ``jnp.asarray`` narrows them with 64-bit mode off (float64 to float32,
+int64 to int32, before the key is taken, so a float64 batch takes the
+float32 entry), ``conv`` and ``add`` get the program compute dtype
+injected (their int8 fast paths cannot infer it), int8 graph inputs are
+lifted to float at the boundary (user values, never activation codes),
+and outputs in the compute dtype leave as float32.  Every call, compile,
+capture and ``lowered_text`` runs under ``device.float32_exact``: float32
+convolutions and matmuls are float32 (not TF32) whatever the caller has
+set, the caller's setting comes back after, and a graph captured that way
+replays the float32 kernels.
 """
 from __future__ import annotations
 
@@ -69,7 +77,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import float32_exact, narrow_64bit, resolve_device
 from ..ir import Graph
 from ..ops import modes
 from ..ops import torch_ops as tops
@@ -188,9 +196,10 @@ def _host(v):
 
 
 def _as_tensor(x):
-    """A caller's input as a tensor (numpy arrays wrap, on the host)."""
-    return x if isinstance(x, torch.Tensor) else torch.as_tensor(
-        np.asarray(x))
+    """A caller's input as a tensor (numpy arrays wrap, on the host), 64-bit
+    values narrowed as ``jnp.asarray`` narrows them."""
+    return narrow_64bit(x if isinstance(x, torch.Tensor)
+                        else torch.as_tensor(np.asarray(x)))
 
 
 def _fresh(v):
@@ -215,14 +224,13 @@ def _freeze(v):
 
 
 def _switches() -> tuple:
-    """The module flags and backend settings the ops read at call time
-    (ops/torch_ops.py, ops/kernels/stage64.py, ops/modes.py, TF32): part of
-    every entry's key, as the ops would take another path under others."""
+    """The module flags the ops read at call time (ops/torch_ops.py,
+    ops/kernels/stage64.py, ops/modes.py): part of every entry's key, as
+    the ops would take another path under others.  (TF32 is not one: a
+    call holds it off.)"""
     from ..ops.kernels import stage64
     return (tops._PALLAS_CONV1X1, tops._STACK_CONV, bool(stage64.SPLIT),
-            stage64.REQUANT, modes.get_erf_mode(),
-            torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
+            stage64.REQUANT, modes.get_erf_mode())
 
 
 def _counters() -> list:
@@ -352,9 +360,6 @@ class Program:
     True}}`` (the kernels' plain versions, see the registry); its content
     is part of every entry's key.
     """
-
-    # a program over several devices (parallel) runs its entries uncaptured
-    _capturable = True
 
     def __init__(self, graph: Graph, weights: list,
                  weight_materializer: Callable | None = None,
@@ -553,6 +558,7 @@ class Program:
             _store(env, senv, edge, out)
         return env, senv
 
+    @float32_exact()
     def _run(self, *inputs):
         """The eager loop: every record folded and every application
         resolved again at this call, nothing cached or captured — the
@@ -589,7 +595,8 @@ class Program:
         return specs, _freeze(self.op_overrides), _switches()
 
     def _captures(self) -> bool:
-        return self._capturable and self.device.type == "cuda"
+        """Whether the entries run as CUDA graphs: on the card."""
+        return self.device.type == "cuda"
 
     def _stream(self):
         if self._side is None:
@@ -601,12 +608,13 @@ class Program:
         """The compiled entry at these inputs' key, compiled (and on CUDA
         captured) on first use."""
         inputs = self._inputs(inputs)
-        with self._lock, torch.inference_mode():
+        with self._lock, torch.inference_mode(), float32_exact():
             key = self._key(inputs)
             if key not in self._cache:
                 self._compile(key, inputs)
             return self._cache[key]
 
+    @float32_exact()
     def _compile(self, key, inputs, scoped=False):
         """Walk the flow once at ``key`` (on CUDA: the warm run, on the
         side stream), keep the folded statics and the resolved list, and on
@@ -632,6 +640,7 @@ class Program:
         self._cache[key] = entry
         return self._finish(env, senv)
 
+    @float32_exact()
     def _capture(self, entry, inputs):
         """Capture the entry's list into a CUDA graph with static input
         and output buffers; record the kernel counters' delta and leave
@@ -653,7 +662,7 @@ class Program:
                        zip(self.graph.inputs, entry.static_in)}
                 self._run_steps(entry, env, where=where)
                 where[0] = "(outputs)"
-                entry.static_out = {n: self._cast_out(env[n])
+                entry.static_out = {n: self._cast_out(self._whole(env[n]))
                                     for n in entry.needs if n in env}
         except Exception as e:
             raise RuntimeError(
@@ -681,6 +690,7 @@ class Program:
         return out
 
     @torch.inference_mode()
+    @float32_exact()
     def __call__(self, *inputs):
         """Run the entry at these inputs' key: compile it on first use
         (answering from the walk), replay its graph on the card, run its
@@ -704,6 +714,11 @@ class Program:
     def _bind_input(self, x):
         """A graph input as the program holds it."""
         return x
+
+    def _whole(self, v):
+        """A value as one tensor on the program's device (a parallel
+        program gathers its shards)."""
+        return v
 
     def _apply(self, ri, rec, layer, spec, args, kw):
         """Run the dynamic application ``ri`` of ``layer`` on ``args``."""
@@ -834,6 +849,7 @@ class Program:
         its output once, weights at their stored width, activations at the
         compute dtype's.  The hand kernels do the same multiply-adds."""
         from torch.utils.flop_counter import FlopCounterMode
+        inputs = self._inputs(inputs)
         ex = self._executor()
         itemsize = {id(t): _itemsize(d) for t, (_, _, d)
                     in zip(ex.weights, self.graph.inits)}

@@ -43,7 +43,7 @@ from planer_tpu_torch.models.builder import GraphBuilder as TBuilder
 from planer_tpu_torch.ops import torch_ops as tops
 from planer_tpu_torch.ops.kernels import stage64 as st
 from planer_tpu_torch.parallel import make_mesh, shard_program
-from planer_tpu_torch.parallel.spatial import shard_spatial
+from planer_tpu_torch.parallel.spatial import SpatialProgram, shard_spatial
 from planer_tpu_torch.parallel.sharding import ShardedProgram
 from planer_tpu_torch.quant import calibrate_act_scales as t_calibrate
 from planer_tpu_torch.quant import make_quant_program
@@ -358,9 +358,12 @@ def test_invalidation_leaves_no_stale_entry():
 
 
 def test_parallel_programs_compile_their_statics_and_run_uncaptured():
-    """shard_program and shard_spatial answer as before; their programs
-    keep an entry per signature, with no graph (a chosen difference: one
-    CUDA graph cannot hold a program over several devices)."""
+    """shard_program and shard_spatial answer as before and keep an entry
+    per signature.  They capture where the program's device is a card and
+    every device of their grid is that card (a mesh of one card repeated,
+    decided here over meshes of ``torch.device`` objects); on a mesh of
+    distinct cards (a chosen difference: per-device graphs are not built)
+    and on the CPU they run uncaptured."""
     mesh = make_mesh((2, 4), ("data", "model"), devices=["cpu"] * 8)
     net = tm.resnet18(num_classes=8, device="cpu")
     x = _x((4, 3, 32, 32))
@@ -375,7 +378,21 @@ def test_parallel_programs_compile_their_statics_and_run_uncaptured():
         assert len(prog._cache) == 1
         assert "graph: none (runs uncaptured on cpu)" in prog.lowered_text(x)
         net._invalidate()
-    assert Program._capturable and not ShardedProgram._capturable
+    one, other = torch.device("cuda", 0), torch.device("cuda", 1)
+    for devices, captures in (([one] * 8, True),
+                              ([one] * 4 + [other] * 4, False),
+                              ([one, other] * 4, False),
+                              ([torch.device("cpu")] * 8, False)):
+        grid = np.empty(8, dtype=object)
+        grid[:] = devices
+        for cls in (ShardedProgram, SpatialProgram):
+            prog = object.__new__(cls)
+            prog.device, prog.grid = devices[0], grid.reshape(2, 4)
+            assert prog._captures() == captures, (cls, devices)
+    prog = object.__new__(Program)
+    for dev, captures in ((one, True), (torch.device("cpu"), False)):
+        prog.device = dev
+        assert prog._captures() == captures
 
 
 def test_program_takes_no_jit_kwargs_or_device_params():

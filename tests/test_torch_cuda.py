@@ -58,3 +58,53 @@ def test_a_capture_that_fails_raises_with_its_layer(card):
     with pytest.raises(RuntimeError, match="failed at layer the_pad"):
         prog(_x((1, 2, 3, 3)), np.array([0.5], np.float32))
     assert not prog._cache
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spatial", [False, True])
+def test_a_one_card_mesh_replays_as_a_cuda_graph(card, spatial):
+    """A (2, 4) mesh of one card captures its step: a replay equals the
+    sharded eager loop bit for bit, returns fresh tensors, and stays
+    within the sharded tests' 1e-5 of the unsharded program."""
+    from planer_tpu_torch.parallel import make_mesh, shard_program
+    from planer_tpu_torch.parallel.spatial import shard_spatial
+    net = tm.resnet18(num_classes=8, device="cuda")
+    xa, xb = _x((4, 3, 32, 32), 1), _x((4, 3, 32, 32), 2)
+    ref = net(xa)
+    shard = shard_spatial if spatial else shard_program
+    prog = shard(net, make_mesh((2, 4), devices=["cuda:0"] * 8))
+    assert prog._captures()
+    first = net(xa)
+    entry = prog._entry(xa)
+    assert entry.graph is not None and entry.kernel_nodes > 20
+    ya = prog(xa)
+    keep = ya.clone()
+    yb = prog(xb)
+    torch.cuda.synchronize()
+    assert torch.equal(ya, keep) and not torch.equal(ya, yb)
+    assert len(prog._cache) == 1
+    torch.testing.assert_close(ya, prog._run(xa), rtol=0, atol=0)
+    np.testing.assert_array_equal(first, ya.cpu().numpy())
+    np.testing.assert_allclose(first, ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+def test_a_float32_program_ignores_the_callers_tf32(card):
+    """With cuDNN's TF32 on, a float32 net answers the same before and
+    after its float32 executor is first built, and the flag reads on
+    after every call."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        net = tm.resnet18(num_classes=8, device="cuda")
+        x = _x((2, 3, 64, 64), 3)
+        before = net(x)
+        assert torch.backends.cudnn.allow_tf32
+        net(x, engine="oracle")
+        assert torch.backends.cudnn.allow_tf32
+        np.testing.assert_array_equal(net(x), before)
+        assert torch.backends.cudnn.allow_tf32
+        assert len(net.program._cache) == 1
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
