@@ -22,18 +22,19 @@
    kernels' plain versions and with the float32 executor; then times the
    step at batch 1 and 64.
 
-4. stagen kernel phase: the ``fuse="all"`` body-stage kernels (one block
-   kernel launch per residual block; the per-conv kernel, one launch per
-   conv, for a block too wide for the block kernel's shared memory)
-   against their plain version (bit-exact) on the real folded tables and
-   activations of built nets, at the three fused 224 geometries (ResNet-18
-   ``stagen_0``, ResNet-50 ``stagen_0`` and ``stagen_1``) and batch 1 and
-   64, on ResNet-50's ``stagen_0`` of a 200 image (R = 50, which no
-   14-pixel tile divides) at batch 2, on ResNet-18's two fused stages at 448
-   (R = 56 and 28; layer3's entry runs conv by conv) at batch 1 and 64, and
-   on two narrow stages whose channels the wrapper pads; checks each
-   block's shared-memory size as the wrapper computes it against the
-   library's; at batch 64 times the
+4. stagen kernel phase: the ``fuse="all"`` body-stage kernel (one block
+   kernel launch per residual block, every block in the geometry the
+   wrapper picks: a resident form, or a wide form that streams the input
+   in 64-channel slabs at shorter tiles) against its plain version
+   (bit-exact) on the real folded tables and activations of built nets,
+   at the three fused 224 geometries (ResNet-18 ``stagen_0``, ResNet-50
+   ``stagen_0`` and ``stagen_1``) and batch 1 and 64, on ResNet-50's
+   ``stagen_0`` of a 200 image (R = 50, which no 14-pixel tile divides) at
+   batch 2, on ResNet-18's and ResNet-50's two fused stages at 448 (R = 56
+   and 28; layer3 in the wide forms) at batch 1 and 64, and on two narrow
+   stages whose channels the wrapper pads; checks each block's
+   shared-memory size as the wrapper computes it against the library's;
+   at batch 64 times the
    stage on the device (CUDA graph replay) and as wrapper calls, the plain
    version and, as a labelled neighbour that is not the same function, the
    port's decomposed chain of the same stage, with the achieved int8 TOP/s;
@@ -50,9 +51,17 @@
    stage): batch 1 and 64, launches, ``FALLOFF``, the plain-version leg and
    step times;
 7. path 7: INT8 ResNet-18 at 448, ``quantize(fuse="all")``: batch 1 and 64,
-   the stagen launches of both fused stages (``stagen_conv`` for layer3's
-   entry), ``FALLOFF`` of the stem stage and layer4 by geometry, the
-   plain-version leg and step times;
+   one ``stagen_block`` launch per block of both fused stages (layer3's
+   entry in a wide form) and no other stagen launch, ``FALLOFF`` of the
+   stem stage and layer4 by geometry, the plain-version leg and step times;
+7b. path 19: INT8 ResNet-50 at 448, ``quantize(fuse="all")`` (calibrated
+   on 4 synthetic 448 images): batch 1 and 64, exactly one ``stagen_block``
+   launch per block per forward of ``stagen_0`` (layer2, R = 56, the
+   resident forms) and ``stagen_1`` (layer3, R = 28: six wide blocks) and
+   no other stagen launch, ``FALLOFF`` of the stem stage and of layers 1
+   and 4 by geometry, the replay and the program on the plain versions
+   bit-identical, the gap to the float32 executor printed (not gated, as
+   path 2's), step times;
 8. dense_q kernel phase: the weight-only GEMM kernel against its plain
    version (f32 outputs max|d|/max|y| <= 1e-5; bf16 outputs within one bf16
    ulp plus the f32 sum-order term, see ``gemm_bound``) at the nine GEMM
@@ -746,15 +755,8 @@ def capture_stages(sg, net, x):
 
 def stage_launches(plan):
     """{launch key: launches} of one stagen_stage call: one block kernel
-    launch per fused block, one per-conv launch per conv of the others."""
-    want = {}
-    for blk in plan.blocks:
-        key, n = f"stagen_block:{plan.tag}", 1
-        if not blk.fused:
-            key = f"stagen_conv:{plan.tag}"
-            n = len(blk.convs) + (blk.proj is not None)
-        want[key] = want.get(key, 0) + n
-    return want
+    launch per block, whatever its width."""
+    return {f"stagen_block:{plan.tag}": len(plan.blocks)}
 
 
 def path_launches(stage_rows, forwards):
@@ -826,22 +828,22 @@ def narrow_stages(torch, sg):
 
 
 def stagen_phase(torch, sg, nets, synthetic_images):
-    """The stagen kernels against their plain version, bit for bit, on every
-    fused stage of the built nets (the program's own folded tables and the
-    stage's real input): ResNet-18 and ResNet-50 at 224, batch 1 and 64,
-    ResNet-50's stagen_0 of a 200 image at batch 2 (R = 50: ragged tiles),
-    ResNet-18 at 448 (layer3's entry too wide to fuse: the per-conv kernel)
-    at batch 1 and 64, and two narrow stages; each call with one block
-    kernel launch per fused block and one per-conv launch per conv of the
-    others, and every block's shared-memory layout as the wrapper computes
-    it; times at batch 64."""
+    """The stagen block kernel against its plain version, bit for bit, on
+    every fused stage of the built nets (the program's own folded tables
+    and the stage's real input): ResNet-18 and ResNet-50 at 224, batch 1
+    and 64, ResNet-50's stagen_0 of a 200 image at batch 2 (R = 50: ragged
+    tiles), ResNet-18 and ResNet-50 at 448 (layer3's blocks in the wide
+    forms: the input streamed in slabs, shorter tiles) at batch 1 and 64,
+    and two narrow stages; each call with one block kernel launch per block,
+    and every block's shared-memory layout as the wrapper computes it
+    against the library's; times at batch 64."""
     from planer_tpu_torch.ops.kernels.gemm_study import graph_ms
     rows = {}
     for b, h, models in ((1, 224, ("resnet18", "resnet50")),
                          (64, 224, ("resnet18", "resnet50")),
                          (2, 200, ("resnet50",)),
-                         (1, 448, ("resnet18@448",)),
-                         (64, 448, ("resnet18@448",))):
+                         (1, 448, ("resnet18@448", "resnet50@448")),
+                         (64, 448, ("resnet18@448", "resnet50@448"))):
         x = next(synthetic_images(b, (3, h, h), seed=200 + b, batch=b))
         x = torch.as_tensor(x, device="cuda")
         cases = []
@@ -857,8 +859,8 @@ def stagen_phase(torch, sg, nets, synthetic_images):
             cases += narrow_stages(torch, sg)
         for name, xs, w, blocks, plan in cases:
             for blk in plan.blocks:
-                args = (blk.form, *blk.widths(), blk.proj is not None,
-                        blk.last)
+                args = (blk.form, blk.th, blk.xr, *blk.widths(),
+                        blk.proj is not None, blk.last)
                 if sg._lib().stagen_block_smem(*args) != sg._block_smem(*args):
                     raise SystemExit(f"{name}: the wrapper's layout size "
                                      f"{sg._block_smem(*args)} is not the "
@@ -882,8 +884,10 @@ def stagen_phase(torch, sg, nets, synthetic_images):
                                  f"version")
             if name.startswith("narrow") or h == 200:
                 continue
+            geos = [(blk.th, blk.xr) for blk in plan.blocks]
             r = rows.setdefault(name, {"tag": plan.tag, "err": 0.0,
-                                       "per_call": stage_launches(plan)})
+                                       "per_call": stage_launches(plan),
+                                       "geometries": geos})
             r["err"] = max(r["err"], d)
             if b == 64:
                 nbytes, ops = stage_work(plan, b, xs.shape[2])
@@ -896,7 +900,9 @@ def stagen_phase(torch, sg, nets, synthetic_images):
                     bytes=nbytes, ops=ops)
                 bms, by = bound_ms(nbytes, ops)
                 r["tops"] = ops / r["ms"] / 1e9
-                log(f"  {name} b64: kernel {r['ms']:.4f} ms on the device "
+                log(f"  {name} b64 (block geometries (tile rows, input "
+                    f"slab slots; 0 resident) {geos}): kernel "
+                    f"{r['ms']:.4f} ms on the device "
                     f"({r['tops']:.1f} TOP/s, bound / time "
                     f"{bms / r['ms']:.3f}; {r['call_ms']:.4f} ms as wrapper "
                     f"calls), plain {r['plain_ms']:.4f} ms, bound {bms:.4f} "
@@ -998,6 +1004,47 @@ def step_times(torch, net, requests, label, card, batches=(1, 64)):
         log(f"{label} step b{b}: {out[b]:.4f} ms, {1e3 * b / out[b]:.1f} "
             f"img/s (program on device tensors; CUDA events; {card})")
     return out
+
+
+def resnet50_448_path(torch, net, srows, counters, synthetic_images, card):
+    """Path 19: INT8 ResNet-50 at 448, fuse="all", batch 1 and 64 through
+    ``Net.__call__`` and ``run`` (replays bit-identical to ``_run``): one
+    ``stagen_block`` launch per block per forward of both fused stages
+    (layer3's six blocks in the wide forms) and no other stagen launch, no
+    stage64 launch and the stem stage, layer1 and layer4 off by geometry;
+    the program against itself on the plain versions (bit-identical: the
+    kernels are integer); the gap to the float32 executor on 32 images
+    printed, not gated (the reference's fused-stage arithmetic, as path 2);
+    step times."""
+    req = {b: next(synthetic_images(b, (3, 448, 448), seed=400 + b,
+                                    batch=b)) for b in (1, 64)}
+    answers, fwd, (l64, f64, lgn, fgn) = drive(net, req, counters,
+                                               label="path 19", same=True)
+    rows = [r for name, r in srows.items()
+            if name.startswith("stagen[resnet50@448 ")]
+    if [r["tag"] for r in rows] != ["bottleneck/s2/256-128-512x4",
+                                    "bottleneck/s2/512-256-1024x6"]:
+        raise SystemExit(f"path 19: fused stages {[r['tag'] for r in rows]}")
+    if not any(xr for r in rows for _, xr in r["geometries"]):
+        raise SystemExit("path 19: no block ran in a wide form")
+    check_counts("path 19 stage64 launches", l64, {})
+    check_counts("path 19 stage64 falloff", f64, {"geometry": fwd})
+    check_counts("path 19 stagen launches (one per block per forward)", lgn,
+                 path_launches(rows, fwd))
+    if any(not k.startswith("stagen_block:") for k in lgn):
+        raise SystemExit(f"path 19: a launch other than stagen_block: {lgn}")
+    check_counts("path 19 stagen falloff", fgn, {"geometry": 2 * fwd})
+    leg1 = plain_leg(net, req, answers, "path 19 kernels vs plain stagen "
+                     "(same program)", need_same=True)
+    imgs = list(synthetic_images(32, (3, 448, 448), seed=29, batch=16))
+    gap = agreement([(net(x), net(x, engine="oracle")) for x in imgs],
+                    "path 19 fuse='all' vs float32 executor (printed, not "
+                    "gated: the fused-stage arithmetic)", float("inf"),
+                    need_margin_agree=False)
+    steps = step_times(torch, net, req, "path 19 resnet50 fuse='all' at 448",
+                       card)
+    return {"launches": lgn, "forwards": fwd, "leg1": leg1, "gap": gap,
+            "steps": steps}
 
 
 # --------------------------------------------------------------------------
@@ -3013,8 +3060,9 @@ def main():
     from planer_tpu_torch.ops.kernels import stagen as sg
     nets = {m: build_net(models, calibrate_act_scales, synthetic_images, m,
                          "all") for m in ("resnet18", "resnet50")}
-    nets["resnet18@448"] = build_net(models, calibrate_act_scales,
-                                     synthetic_images, "resnet18", "all", 448)
+    for m in ("resnet18", "resnet50"):
+        nets[f"{m}@448"] = build_net(models, calibrate_act_scales,
+                                     synthetic_images, m, "all", 448)
     net50d = build_net(models, calibrate_act_scales, synthetic_images,
                        "resnet50", None)
     srows = stagen_phase(torch, sg, nets, synthetic_images)
@@ -3080,10 +3128,10 @@ def main():
         profile_steps(torch, net18.program, req3, card, args.profile,
                       "resnet18_fuse_all")
 
-    # path 7: ResNet-18 at 448, fuse="all": layer2 (R=56) fused block by
-    # block, layer3 (R=28) with its entry block conv by conv (too wide for
-    # the block kernel's shared memory) and its identity block fused; the
-    # stem stage and layer4 fall off by geometry
+    # path 7: ResNet-18 at 448, fuse="all": layer2 (R=56) and layer3 (R=28)
+    # one launch per block, layer3's entry in a wide form (its input
+    # streamed in slabs at 7-row tiles); the stem stage and layer4 fall off
+    # by geometry
     net448 = nets["resnet18@448"]
     req7 = {b: next(synthetic_images(b, (3, 448, 448), seed=300 + b,
                                      batch=b)) for b in (1, 64)}
@@ -3094,13 +3142,19 @@ def main():
     check_counts("path 7 stage64 launches", l64, {})
     check_counts("path 7 stage64 falloff", f64, {"geometry": fwd7})
     check_counts("path 7 stagen launches", lgn7, path_launches(r448, fwd7))
-    if not any(k.startswith("stagen_conv:") for k in lgn7):
-        raise SystemExit("path 7: the per-conv kernel did not run")
+    if any(not k.startswith("stagen_block:") for k in lgn7):
+        raise SystemExit(f"path 7: a launch other than stagen_block: {lgn7}")
     check_counts("path 7 stagen falloff", fgn, {"geometry": fwd7})
     leg1_7 = plain_leg(net448, req7, answers7,
                        "path 7 kernels vs plain stagen (same program)")
     steps7 = step_times(torch, net448, req7, "path 7 resnet18 fuse='all' "
                         "at 448", card)
+
+    # path 19: ResNet-50 at 448, fuse="all": layer2 (R=56, resident forms)
+    # and layer3 (R=28, six wide blocks) one launch per block; the stem
+    # stage, layer1 (R=112) and layer4 (R=14) fall off by geometry
+    p19 = resnet50_448_path(torch, nets["resnet50@448"], srows, counters,
+                            synthetic_images, card)
 
     # ------------------------------------- dense_q kernel and path 4
     from planer_tpu_torch.ops import torch_ops as tops
@@ -3308,7 +3362,9 @@ def main():
             f"achieved at b{n}")
     for name, r in srows.items():
         b_ms, by = bound_ms(r["bytes"], r["ops"])
-        lgn, fwd = ((lgn2, fwd2) if "resnet50" in name else
+        lgn, fwd = ((p19["launches"], p19["forwards"])
+                    if "resnet50@448" in name else
+                    (lgn2, fwd2) if "resnet50" in name else
                     (lgn7, fwd7) if "@448" in name else (lgn3, fwd3))
         keys = {k: lgn[k] for k in r["per_call"]}
         rows.append({
@@ -3320,6 +3376,7 @@ def main():
             "max_abs_err": r["err"], "ms": r["ms"], "call_ms": r["call_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": b_ms, "bound_by": by,
             "tops": r["tops"], "bound_over_time": b_ms / r["ms"],
+            "geometries": r["geometries"],
             "library_ms": None, "neighbour_ms": r["neighbour_ms"],
             "neighbour": "not the same function: the port's decomposed chain "
                          "of the stage (torch._int_mm W8A8 convs where "
@@ -3396,7 +3453,9 @@ def main():
         f"{gap50[0]:.6g}, default-fuse executor p99 {leg3_50[0]:.6g}; "
         f"path 3 plain p99 {leg1_18[0]:.6g}, executor gap p99 "
         f"{gap18[0]:.6g}, steps {steps18} ms; path 7 plain p99 "
-        f"{leg1_7[0]:.6g}, steps {steps7} ms; resnet50 steps fuse='all' {steps50}, default "
+        f"{leg1_7[0]:.6g}, steps {steps7} ms; path 19 plain p99 "
+        f"{p19['leg1'][0]:.6g}, executor gap p99 {p19['gap'][0]:.6g}, steps "
+        f"{p19['steps']} ms; resnet50 steps fuse='all' {steps50}, default "
         f"{steps50d} ms; total {time.perf_counter() - t_all:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": rows}), flush=True)

@@ -11,11 +11,15 @@ int8 NHWC planes it allocates itself: a block's intermediate planes (t1, t2,
 mid, the projection residual) stay in shared memory, per output tile.  The
 kernel's operands are packed once on the host (``_pack_stream``): every
 weight slice of a block, pre-swizzled, in the order the kernel reads them.
-A block whose planes do not fit in shared memory at the kernel's tiles
-(``_block_smem``: the wide stages, ResNet-50 layers 3-4 and ResNet-18
-layer 3's entry and layer 4, where the input side makes them eligible) runs
-conv by conv through the same library's per-conv kernel, its planes in
-device memory.
+Every block of an eligible stage is one launch, whatever its width: a block
+whose input region does not fit beside its planes (the wide stages,
+ResNet-50 layers 3-4 and ResNet-18 layer 3's entry and layer 4, where the
+input side makes them eligible) runs in one of the kernel's wide forms,
+which stream the input through a ring of 64-channel slabs (an entry
+block's projection input is loaded once per tile, into the ring's place),
+read the identity residual from device memory and walk shorter tiles;
+``_route`` picks the first geometry of ``_GEOMETRIES`` whose layout
+(``_block_smem``) fits one SM's 227 KB.
 
 What is reproduced is the TPU kernel's arithmetic, not the float model's
 (the two are far apart on a calibrated model: ROADMAP "Faults found"):
@@ -43,10 +47,10 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..qtypes import QTensor
 from ..torch_ops import conv_s8, quantize, scalar
@@ -56,8 +60,7 @@ __all__ = ["stagen", "decomposed", "parse_blocks", "FALLOFF", "LAUNCHES",
 
 # why the fused path was skipped, by reason (the reference's keys)
 FALLOFF = collections.Counter()
-# kernel launches, as "stagen_block:<tag>" (one per fused block) and
-# "stagen_conv:<tag>" (one per conv of a block too wide to fuse) by the
+# kernel launches, as "stagen_block:<tag>" (one per residual block) by the
 # stage geometry (see _Plan.tag) they ran for; runs of the plain version are
 # not counted
 LAUNCHES = collections.Counter()
@@ -70,17 +73,22 @@ _CPAD = 64
 # the kernel's block forms (its FORM template argument) by (kind, stride)
 _FORMS = {("bottleneck", 1): 0, ("basic", 1): 1, ("basic", 2): 2,
           ("bottleneck", 2): 3}
-# each form's (tile rows, tile cols, input-region pixels, first-conv rows:
-# one per pixel of its t1 / mid plane), csrc/stagen.cu Geo
-_GEO = ((14, 14, 256, 256), (14, 14, 324, 256), (14, 14, 4 * 289, 256),
-        (7, 14, 4 * 120, 480))
+# each form's geometries as (tile rows, input slab slots), in the order
+# they are tried: the resident form (0 slots: the whole input region in
+# shared memory), then the wide forms (the region streamed through 2 or 1
+# 64-channel slabs) at the tile heights the widest ResNet blocks need,
+# taller tiles first (fewer weight slices per output pixel: measured faster
+# than a second slot, stagen_study); csrc/stagen.cu by_geometry holds the
+# same
+_GEOMETRIES = {0: ((14, 0), (14, 2), (14, 1), (7, 2), (7, 1)),
+               1: ((14, 0), (14, 2), (14, 1)),
+               2: ((14, 0), (14, 1), (7, 2), (7, 1)),
+               3: ((7, 0), (7, 2), (7, 1), (3, 2), (3, 1))}
 # the block kernel's shared-memory budget (227 KB), weight ring depth and
 # bf16 staging pitch (csrc/stagen.cu SMEM_MAX, NB, SP)
 _SMEM_MAX = 232448
 _NB = 6
 _SP = 200
-# the per-conv kernel's epilogues (its EPI template argument)
-EPI_RELU, EPI_RES, EPI_SUM, EPI_LAST = 0, 1, 2, 3
 
 
 # --------------------------------------------------------------------------
@@ -197,12 +205,6 @@ class _Conv:
     f: torch.Tensor          # (O,) float32 folded scale
     b: torch.Tensor          # (O,) float32 folded bias
     stride: int
-    # the per-conv kernel's (A, f, b), padded to the granule: _conv_operands
-    padded: tuple | None = None
-
-    @property
-    def k(self):
-        return self.w.shape[2]
 
 
 @dataclasses.dataclass
@@ -214,7 +216,9 @@ class _Block:
     sx_res: float            # the residual's scale into the final sum
     last: bool
     form: int = 0            # the kernel's block form (_FORMS)
-    fused: bool = True       # one block kernel launch, else conv by conv
+    th: int | None = None    # its geometry (_route): tile rows, None if none fits
+    xr: int = 0              # input slab slots, 0 for the resident input
+    smem: int = 0            # the layout's bytes (the smallest's if none fits)
     stream: torch.Tensor | None = None   # (S, 4096) int8: _pack_stream
     tab: torch.Tensor | None = None      # float32 (f, b) rows: _pack_tab
 
@@ -310,20 +314,23 @@ def _pack_stream(blk):
     bottleneck: conv1 (once per group of 256 t1 rows) by output chunk and
     input slab; conv2 by output chunk, tap, slab; then per 64 outputs the
     projection's slabs (entry blocks) and conv3's.  basic: conv1 by output
-    chunk, tap, slab; then per 64 outputs the projection's slabs and
-    conv2's taps and slabs."""
+    chunk, tap, slab (a wide form: by output chunk, slab, tap, every tap of
+    a streamed slab before the next); then per 64 outputs the projection's
+    slabs and conv2's taps and slabs."""
     ws = [_padded(c) for c in blk.convs]
     wd = _padded(blk.proj) if blk.proj is not None else None
     cs = ws[0].shape[1] // 64
     out = []
 
-    def conv(wp, n, taps, slabs):
-        out.extend(_slice(wp, n, t, s) for t in range(taps)
-                   for s in range(slabs))
+    def conv(wp, n, taps, slabs, slab_major=False):
+        order = ([(t, s) for s in range(slabs) for t in range(taps)]
+                 if slab_major else
+                 [(t, s) for t in range(taps) for s in range(slabs)])
+        out.extend(_slice(wp, n, t, s) for t, s in order)
 
     if blk.kind == "bottleneck":
         ms, os_ = ws[0].shape[0] // 64, ws[2].shape[0] // 64
-        for _ in range(-(-_GEO[blk.form][3] // 256)):
+        for _ in range(-(-_geo(blk.form, blk.th)[3] // 256)):
             for n in range(ms):
                 conv(ws[0], n, 1, cs)
         for n in range(ms):
@@ -332,7 +339,7 @@ def _pack_stream(blk):
     else:
         os_ = ws[0].shape[0] // 64
         for n in range(os_):
-            conv(ws[0], n, 9, cs)
+            conv(ws[0], n, 9, cs, slab_major=blk.xr > 0)
         fin, fin_taps, fin_slabs = ws[1], 9, os_
     for n in range(os_):
         if wd is not None:
@@ -341,38 +348,50 @@ def _pack_stream(blk):
     return np.stack(out)
 
 
-def _block_smem(form, cin, cmid, cout, proj, last):
+def _geo(form, th):
+    """(tile rows, tile cols, input-region pixels per slab, first-conv rows:
+    one per pixel of its t1 / mid plane) of a form at ``th`` tile rows
+    (csrc/stagen.cu Geo)."""
+    xpix = {0: (th + 2) * 16, 1: (th + 4) * 18, 2: 4 * (th + 3) * 17,
+            3: 4 * (th + 1) * 15}[form]
+    return th, 14, xpix, xpix if form in (0, 3) else (th + 2) * 16
+
+
+def _block_smem(form, th, xr, cin, cmid, cout, proj, last):
     """Bytes of dynamic shared memory the block kernel lays out for a block
-    of this form and these padded widths (csrc/stagen.cu ``layout``; the
-    library's ``stagen_block_smem`` returns the same)."""
-    th, tw, xpix, c1rows = _GEO[form]
+    of this form, geometry (``th`` tile rows, ``xr`` input slab slots, 0:
+    the input region resident at all cin channels) and these padded widths
+    (csrc/stagen.cu ``layout``; the library's ``stagen_block_smem`` returns
+    the same)."""
+    th, tw, xpix, c1rows = _geo(form, th)
     bot = form in (_FORMS["bottleneck", 1], _FORMS["bottleneck", 2])
     out = th * tw
     stage = 64 * _SP * 2 if last else out * 64
-    t1 = xpix * cin                      # the input region, resident
     t1b = c1rows * (cmid if bot else cout)
     if bot:                              # staging reuses t1 after conv2
         t1b = max(t1b, stage)
-    end = t1 + t1b + (out * cmid if bot else 0) + (out * 64 if proj else 0)
+    end = t1b + (out * cmid if bot else 0) + (out * 64 if proj else 0)
     if not bot:
         end += stage
+    # the input region: resident, or xr slabs of the wide forms' ring, whose
+    # place an entry block's projection input (its out pixels at cin
+    # channels) takes after the first conv
+    if xr:
+        end += max(xr * xpix * 64, out * cin if proj else 0)
+    else:
+        end += xpix * cin
     return end + _NB * 64 * 64 + 2 * _NB * 8
 
 
-def _fits(blk):
-    """Whether the block runs fused: its layout fits one SM's 227 KB."""
-    return _block_smem(blk.form, *blk.widths(), blk.proj is not None,
-                       blk.last) <= _SMEM_MAX
-
-
-def _conv_operands(c, device):
-    """The per-conv kernel's (A, f, b): A (Op, k*k*Cp) int8 with A[o, t*Cp +
-    c] = w[o, c, dy, dx] (tap t = dy*k + dx), f and b float32 (Op,), padded
-    outputs and inputs zero."""
-    wp = _padded(c)
-    A = np.ascontiguousarray(wp.transpose(0, 2, 1)).reshape(wp.shape[0], -1)
-    fb = [np.pad(_np32(v), (0, wp.shape[0] - v.shape[0])) for v in (c.f, c.b)]
-    return tuple(torch.as_tensor(v).to(device) for v in (A, *fb))
+def _route(blk):
+    """The block's geometry: the first of its form's ``_GEOMETRIES`` whose
+    layout fits one SM's 227 KB, as (tile rows, slab slots, bytes); (None,
+    0, bytes of the smallest) where none does."""
+    args = (*blk.widths(), blk.proj is not None, blk.last)
+    sizes = [(th, xr, _block_smem(blk.form, th, xr, *args))
+             for th, xr in _GEOMETRIES[blk.form]]
+    return next((g for g in sizes if g[2] <= _SMEM_MAX),
+                (None, 0, min(g[2] for g in sizes)))
 
 
 def _pack_tab(blk):
@@ -440,15 +459,11 @@ def _fold(w, blocks, device):
             sx_res = cur * nxt
         blk = _Block(b["kind"], st, convs, proj, sx_res, last,
                      _FORMS[b["kind"], st])
-        blk.fused = _fits(blk)
-        every = convs + ([proj] if proj is not None else [])
-        if blk.fused:
+        blk.th, blk.xr, blk.smem = _route(blk)
+        if blk.th is not None:       # else stagen_stage raises on the card
             blk.stream = torch.as_tensor(_pack_stream(blk)).to(device)
             blk.tab = torch.as_tensor(_pack_tab(blk)).to(device)
-        else:
-            for c in every:
-                c.padded = _conv_operands(c, device)
-        for c in every:
+        for c in convs + ([proj] if proj is not None else []):
             c.f, c.b = c.f.to(device), c.b.to(device)
         out.append(blk)
         cur = (1.0 if last
@@ -528,21 +543,36 @@ def _lib():
     from . import build
     lib = build.load("stagen")
     if not getattr(lib, "_planer_typed", False):
-        lib.stagen_block.argtypes = [_VP, _VP, _VP, _F, _VP] + [_I] * 10 + [_VP]
+        lib.stagen_block.argtypes = ([_VP, _VP, _VP, _F, _VP] + [_I] * 12
+                                     + [_VP, ctypes.c_longlong, _VP])
         lib.stagen_block.restype = _I
-        lib.stagen_block_smem.argtypes = [_I] * 6
+        lib.stagen_block_smem.argtypes = [_I] * 8
         lib.stagen_block_smem.restype = _I
-        lib.stagen_conv.argtypes = [_VP] * 5 + [_F, _VP] + [_I] * 7 + [_VP]
-        lib.stagen_conv.restype = _I
         lib._planer_typed = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _scratch_bytes(blk, n, h, device):
+    """The slab images a wide form keeps when it reads a stage's NCHW
+    codes: one input region at cin channels per block of its persistent
+    grid (one per SM, at most one per tile)."""
+    th, tw, xpix, _ = _geo(blk.form, blk.th)
+    r = h // blk.stride
+    tiles = n * -(-r // th) * -(-r // tw)
+    return min(tiles, _sms(device)) * blk.widths()[0] * xpix
 
 
 def _launch_block(x, h, blk, tag, nchw=False):
     """One block kernel launch on an (N, h, h, Cp) int8 NHWC plane, or
     (``nchw``, a stage's first block) on the stage's (N, C, h, h) int8
-    codes.  Returns (N, r, r, Op) int8 NHWC, or (N, Op, r, r) bf16 NCHW for
-    the stage's last block, and r."""
+    codes (a wide form's slab images in a scratch plane).  Returns (N, r,
+    r, Op) int8 NHWC, or (N, Op, r, r) bf16 NCHW for the stage's last
+    block, and r."""
     n, cp = x.shape[0], x.shape[1 if nchw else 3]
     cin, cmid, cout = blk.widths()
     if _cpad(cp) != cin:
@@ -554,59 +584,22 @@ def _launch_block(x, h, blk, tag, nchw=False):
                           device=x.device)
     else:
         out = torch.empty((n, r, r, cout), dtype=torch.int8, device=x.device)
+    scratch = None
+    if nchw and blk.xr:
+        scratch = torch.empty(_scratch_bytes(blk, n, h, x.device),
+                              dtype=torch.int8, device=x.device)
     err = _lib().stagen_block(
         x.data_ptr(), blk.stream.data_ptr(), blk.tab.data_ptr(),
         float(blk.sx_res), out.data_ptr(), n, h, cin, cmid, cout, blk.form,
-        int(blk.proj is not None), int(blk.last), blk.stream.shape[0],
-        cp if nchw else 0, torch.cuda.current_stream(x.device).cuda_stream)
+        blk.th, blk.xr, int(blk.proj is not None), int(blk.last),
+        blk.stream.shape[0], cp if nchw else 0,
+        scratch.data_ptr() if scratch is not None else None,
+        scratch.numel() if scratch is not None else 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"stagen_block launch failed: CUDA error {err}")
     LAUNCHES[f"stagen_block:{tag}"] += 1
     return out, r
-
-
-def _launch_conv(x, h, c, epi, tag, res=None, sx=0.0):
-    """One per-conv kernel launch on an (N, h, h, Cp) int8 NHWC plane.
-    Returns (N, ho, ho, Op) int8 NHWC, or (N, Op, ho, ho) bf16 NCHW for
-    EPI_LAST, and ho."""
-    A, f, b = c.padded
-    n, cp = x.shape[0], x.shape[3]
-    op = A.shape[0]
-    if A.shape[1] != c.k * c.k * cp:
-        raise ValueError(f"stagen conv: input has {cp} channels, weights "
-                         f"want {A.shape[1] // (c.k * c.k)}")
-    ho = (h + 2 * (c.k // 2) - c.k) // c.stride + 1
-    if epi == EPI_LAST:
-        out = torch.empty((n, op, ho, ho), dtype=torch.bfloat16,
-                          device=x.device)
-    else:
-        out = torch.empty((n, ho, ho, op), dtype=torch.int8, device=x.device)
-    if res is not None and tuple(res.shape) != (n, ho, ho, op):
-        raise ValueError(f"stagen conv: residual {tuple(res.shape)} for an "
-                         f"output of {(n, ho, ho, op)}")
-    err = _lib().stagen_conv(
-        x.data_ptr(), A.data_ptr(), f.data_ptr(), b.data_ptr(),
-        res.data_ptr() if res is not None else None, float(sx),
-        out.data_ptr(), n, h, cp, op, c.k, c.stride, epi,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"stagen_conv launch failed: CUDA error {err}")
-    LAUNCHES[f"stagen_conv:{tag}"] += 1
-    return out, ho
-
-
-def _run_convs(x, h, blk, tag):
-    """A block too wide to fuse, one per-conv launch per conv, on an (N, h,
-    h, Cp) int8 NHWC plane: what _launch_block returns."""
-    res = x
-    if blk.proj is not None:
-        res, _ = _launch_conv(x, h, blk.proj, EPI_RES, tag)
-    t, ho = x, h
-    for c in blk.convs[:-1]:
-        t, ho = _launch_conv(t, ho, c, EPI_RELU, tag)
-    return _launch_conv(t, ho, blk.convs[-1],
-                        EPI_LAST if blk.last else EPI_SUM, tag, res,
-                        blk.sx_res)
 
 
 def _check_plan(xq, plan):
@@ -626,7 +619,7 @@ def _check_plan(xq, plan):
     for blk in plan.blocks:
         ts = [blk.stream, blk.tab]
         for c in blk.convs + ([blk.proj] if blk.proj is not None else []):
-            ts += [c.w, c.f, c.b, *(c.padded or ())]
+            ts += [c.w, c.f, c.b]
         for t in (t for t in ts if t is not None):
             if t.device != xq.device:
                 raise ValueError(f"stagen: weights on {t.device}, input "
@@ -636,26 +629,24 @@ def _check_plan(xq, plan):
 def stagen_stage(xq, plan):
     """Kernel wrapper for ``stagen_plain`` (same arguments and result).
     CPU tensors run the plain version; CUDA tensors launch the block kernel
-    once per block of the stage (a block too wide for it, the per-conv
-    kernel once per conv): the first block reads the int8 NCHW codes, the
-    others int8 NHWC planes padded to 64 channels."""
+    once per block of the stage, each in its geometry (``_route``): the
+    first block reads the int8 NCHW codes in place, the others the int8
+    NHWC planes, padded to 64 channels, that the block before wrote.  A
+    block that fits no geometry raises."""
     _check_plan(xq, plan)
     if xq.device.type == "cpu":
         return stagen_plain(xq, plan)
     if xq.device.type != "cuda":
         raise ValueError(f"stagen: no kernel for {xq.device}")
-    # the first block reads the NCHW codes in place (the per-conv kernel an
-    # NHWC copy); the others the NHWC planes the block before wrote
-    cur, h, out, tag = xq, xq.shape[2], None, plan.tag
     for i, blk in enumerate(plan.blocks):
-        if blk.fused:
-            out, h = _launch_block(cur, h, blk, tag, nchw=i == 0)
-        else:
-            if i == 0:
-                cur = F.pad(xq.permute(0, 2, 3, 1),
-                            (0, _cpad(plan.cin) - plan.cin)).contiguous()
-            out, h = _run_convs(cur, h, blk, tag)
-        cur = out
+        if blk.th is None:
+            raise ValueError(
+                f"stagen: block {i} of {plan.tag} ({blk.kind}, "
+                f"{'-'.join(map(str, blk.widths()))}) needs {blk.smem} bytes "
+                f"of shared memory at its smallest tile, over {_SMEM_MAX}")
+    out, h = xq, xq.shape[2]
+    for i, blk in enumerate(plan.blocks):
+        out, h = _launch_block(out, h, blk, plan.tag, nchw=i == 0)
     if out.shape[1] != plan.cout:
         out = out[:, :plan.cout].contiguous()
     return out

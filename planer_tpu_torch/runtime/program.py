@@ -250,7 +250,6 @@ def _delta(after, before) -> collections.Counter:
 _KERNELS = (("stem_pool_requant", "stem_kernel"),
             ("basic_block", "block_kernel"),
             ("stagen_block", "block_kernel"),
-            ("stagen_conv", "conv_kernel"),
             ("dense_q", "dense_q_kernel"))
 
 
@@ -764,11 +763,7 @@ class Program:
                 kernels = {"stem_kernel": 1, **({"block_kernel": nb}
                                                 if nb else {})}
             elif plan is not None:
-                nf = sum(b.fused for b in plan.blocks)
-                nc = sum(len(b.convs) + (b.proj is not None)
-                         for b in plan.blocks if not b.fused)
-                kernels = {k: n for k, n in (("block_kernel", nf),
-                                             ("conv_kernel", nc)) if n}
+                kernels = {"block_kernel": len(plan.blocks)}
             return "plain[" + " + ".join(
                 f"{k} x{n}" for k, n in kernels.items()) + "]"
         if op in ("conv", "dense") and isinstance(args[1], QTensor):

@@ -108,3 +108,85 @@ def test_a_float32_program_ignores_the_callers_tf32(card):
         assert len(net.program._cache) == 1
     finally:
         torch.backends.cudnn.allow_tf32 = saved
+
+
+# (kind, cin, cmid, cout, blocks, entry stride, input side, batch): the
+# wide forms on the card: ResNet-18 layer3 at 448 (the basic entry
+# streamed at 14 tile rows, the identity block resident) and layer4 at 768
+# (7 rows; the identity block streamed), ResNet-50 layer3 at 384 and 448
+# (the bottleneck entry on one slab slot, identity blocks on two), ResNet-50
+# layer4 at 768 (3 and 7 tile rows)
+WIDE_STAGES = [("basic", 128, 256, 256, 2, 2, 56, 2),
+               ("basic", 256, 512, 512, 2, 2, 48, 2),
+               ("bottleneck", 512, 256, 1024, 2, 2, 48, 2),
+               ("bottleneck", 512, 256, 1024, 3, 2, 56, 3),
+               ("bottleneck", 1024, 512, 2048, 2, 2, 48, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", WIDE_STAGES)
+def test_wide_blocks_are_one_launch_each_and_exact(card, stage):
+    """Every block of a wide stage runs as one block kernel launch in its
+    geometry, equal to the plain version bit for bit (bf16 out), and the
+    library's layout size is the wrapper's."""
+    from planer_tpu_torch.ops.kernels import stagen as sg
+    from planer_tpu_torch.ops.kernels.stagen_study import random_stage
+    *shape, n = stage
+    x, w, blocks = random_stage(*shape, n=n, seed=5)
+    plan = sg._fold(w, blocks, x.device)
+    assert any(b.xr for b in plan.blocks)
+    for blk in plan.blocks:
+        args = (blk.form, blk.th, blk.xr, *blk.widths(),
+                blk.proj is not None, blk.last)
+        assert sg._lib().stagen_block_smem(*args) == sg._block_smem(*args)
+    xq = sg.stagen_prologue(x, plan.s_in)
+    sg.LAUNCHES.clear()
+    out = sg.stagen_stage(xq, plan)
+    torch.cuda.synchronize()
+    assert dict(sg.LAUNCHES) == {f"stagen_block:{plan.tag}": len(blocks)}
+    sg.LAUNCHES.clear()
+    ref = sg.stagen_plain(xq, plan)
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert torch.equal(out, ref)
+    assert (ref > 0).float().mean() > 0.2
+
+
+@pytest.mark.cuda
+def test_a_block_that_fits_no_geometry_raises_on_the_card(card):
+    """A block no geometry fits (a basic block 1024 wide) raises with its
+    bytes; nothing is launched in its place."""
+    from planer_tpu_torch.ops.kernels import stagen as sg
+    from planer_tpu_torch.ops.kernels.stagen_study import random_stage
+    x, w, blocks = random_stage("basic", 1024, 1024, 1024, 1, 1, 24, n=1)
+    plan = sg._fold(w, blocks, x.device)
+    sg.LAUNCHES.clear()
+    with pytest.raises(ValueError, match=f"needs {plan.blocks[0].smem} bytes"):
+        sg.stagen_stage(sg.stagen_prologue(x, plan.s_in), plan)
+    assert not sg.LAUNCHES
+
+
+# the resident forms' stages at 224 (ResNet-18 stagen_0, ResNet-50 stagen_0
+# and stagen_1), each first block gathering the NCHW codes slab by slab
+RESIDENT_STAGES = [("basic", 64, 128, 128, 2, 2, 56, 2),
+                   ("bottleneck", 64, 64, 256, 3, 1, 56, 2),
+                   ("bottleneck", 256, 128, 512, 4, 2, 56, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage", RESIDENT_STAGES)
+def test_resident_stages_are_one_launch_per_block_and_exact(card, stage):
+    """The 224 stages keep their resident forms (the whole input region in
+    shared memory), one launch per block, bit for bit the plain version."""
+    from planer_tpu_torch.ops.kernels import stagen as sg
+    from planer_tpu_torch.ops.kernels.stagen_study import random_stage
+    *shape, n = stage
+    x, w, blocks = random_stage(*shape, n=n, seed=6)
+    plan = sg._fold(w, blocks, x.device)
+    assert not any(b.xr for b in plan.blocks)
+    xq = sg.stagen_prologue(x, plan.s_in)
+    sg.LAUNCHES.clear()
+    out = sg.stagen_stage(xq, plan)
+    torch.cuda.synchronize()
+    assert dict(sg.LAUNCHES) == {f"stagen_block:{plan.tag}": len(blocks)}
+    sg.LAUNCHES.clear()
+    assert torch.equal(out, sg.stagen_plain(xq, plan))

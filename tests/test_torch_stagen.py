@@ -523,20 +523,46 @@ def test_fuse_all_pla_both_directions(ref_nets, tmp_path):
 # ------------------------------------- the block kernel's layouts, in numpy
 #
 # numpy copies of csrc/stagen.cu, one block launch per residual block: each
-# form's output tile and input region (with the stride-2 forms' four phase
-# planes), the swizzled channel-last planes and weight slices read at the
-# kernel's addresses, the weight stream consumed slice by slice in the
-# kernel's order, the epilogues with their zeroed padding pixels, the
-# staging and the stores.  The 64-byte rows these addresses name are what
-# the kernel's ldmatrix loads hand to mma.sync as fragments (the fragment
-# layout of stage64's kernels, checked in test_torch_stage64.py).  Driven
-# over the packed stream, the copies must give stagen_plain's output bit for
-# bit.
+# form's output tile and input region at its geometry (tile rows, and the
+# wide forms' slab ring), with the stride-2 forms' four phase planes, the
+# swizzled channel-last planes and weight slices read at the kernel's
+# addresses, the weight stream consumed slice by slice in the kernel's
+# order, the wide forms' input stream slab by slab through its slots (the
+# first conv's region), an entry block's projection input loaded into the
+# slots' place, and the identity residual read from the block's input, the
+# epilogues with their zeroed
+# padding pixels, the staging and the stores.  The 64-byte rows these
+# addresses name are what the kernel's ldmatrix loads hand to mma.sync as
+# fragments (the fragment layout of stage64's kernels, checked in
+# test_torch_stage64.py).  Driven over the packed stream, the copies must
+# give stagen_plain's output bit for bit.
 
-# form -> (tile rows, tile cols, input-region pixels, first-conv rows)
-GEO = {0: (14, 14, 256, 256), 1: (14, 14, 324, 256),
-       2: (14, 14, 4 * 289, 256), 3: (7, 14, 4 * 120, 480)}
 SP = 200
+TW = 14
+SLOT_FILL = 85          # what a slab slot holds before its first copy
+
+
+def _geo(form, th):
+    """(input-region pixels per slab, first-conv rows, phase-plane pixels)
+    of a form at th tile rows (Geo)."""
+    pp = {2: (th + 3) * 17, 3: (th + 1) * 15}.get(form, 0)
+    xpix = {0: (th + 2) * 16, 1: (th + 4) * 18}.get(form, 4 * pp)
+    return xpix, xpix if form in (0, 3) else (th + 2) * 16, pp
+
+
+def _layout_bytes(form, th, xr, cin, cmid, cout, proj, last):
+    """The kernel's shared memory (layout): T1 (the bottleneck's staging
+    after conv2), T2, RES, the basic staging, the input region (resident
+    at cin channels, or xr slab slots whose place an entry block's
+    projection input takes), the weight ring and its bars."""
+    xpix, c1, _ = _geo(form, th)
+    bot, out = form in (0, 3), th * TW
+    stage = 64 * SP * 2 if last else out * 64
+    t1 = c1 * (cmid if bot else cout)
+    n = (max(t1, stage) if bot else t1 + stage) + (out * cmid if bot else 0)
+    n += out * 64 if proj else 0
+    n += (max(xr * xpix * 64, out * cin * proj) if xr else xpix * cin)
+    return n + 6 * 4096 + 2 * 6 * 8
 
 
 def _swz(p, chunk):
@@ -551,12 +577,13 @@ def _at(p):
     return _swz(p[:, None], _C[None, :] >> 4) + (_C[None, :] & 15)
 
 
-def _x_pixel(form, p, y0, x0):
+def _x_pixel(form, th, p, y0, x0):
     if form == 0:
         return y0 - 1 + p // 16, x0 - 1 + p % 16, np.ones(p.shape, bool)
     if form == 1:
         return y0 - 2 + p // 18, x0 - 2 + p % 18, np.ones(p.shape, bool)
-    pp, pw, rh, rw = (289, 17, 32, 32) if form == 2 else (120, 15, 14, 28)
+    pp = _geo(form, th)[2]
+    pw, rh, rw = (17, 2 * th + 4, 32) if form == 2 else (15, 2 * th, 28)
     oy, ox = (2 * y0 - 3, 2 * x0 - 3) if form == 2 else (2 * y0 - 1,
                                                           2 * x0 - 1)
     pl, pos = p // pp, p % pp
@@ -564,35 +591,41 @@ def _x_pixel(form, p, y0, x0):
     return oy + ry, ox + rx, (ry <= rh) & (rx <= rw)
 
 
-def _c1(form, r, t):
+def _proj_pixel(form, m, y0, x0):
+    """A wide block's projection slab: output pixel m -> its input pixel."""
+    s = 2 if form in (2, 3) else 1
+    return s * (y0 + m // TW), s * (x0 + m % TW)
+
+
+def _c1(form, th, r, t):
     """First conv: source pixel of row r at tap t (t = 0 for a 1x1)."""
     dy, dx = t // 3, t % 3
     if form == 1:
         return (r // 16) * 18 + r % 16 + dy * 18 + dx
     if form == 2:
-        return ((r // 16) * 17 + r % 16 + ((dy & 1) * 2 + (dx & 1)) * 289
-                + (dy >> 1) * 17 + (dx >> 1))
+        return ((r // 16) * 17 + r % 16 + ((dy & 1) * 2 + (dx & 1))
+                * _geo(form, th)[2] + (dy >> 1) * 17 + (dx >> 1))
     return r
 
 
-def _c2(form, m, t):
+def _c2(form, th, m, t):
     """The 3x3 on t1 / mid: source pixel of output pixel m at tap t."""
     dy, dx = t // 3, t % 3
     if form == 3:
-        return ((m // 14) * 15 + m % 14 + ((dy & 1) * 2 + (dx & 1)) * 120
-                + (dy >> 1) * 15 + (dx >> 1))
+        return ((m // 14) * 15 + m % 14 + ((dy & 1) * 2 + (dx & 1))
+                * _geo(form, th)[2] + (dy >> 1) * 15 + (dx >> 1))
     return (m // 14) * 16 + m % 14 + dy * 16 + dx
 
 
-def _res_px(form, m):
-    i, j = m // 14, m % 14
+def _res_px(form, th, m):
+    i, j, pp = m // 14, m % 14, _geo(form, th)[2]
     return {0: (i + 1) * 16 + j + 1, 1: (i + 2) * 18 + j + 2,
-            2: 3 * 289 + (i + 1) * 17 + j + 1, 3: 3 * 120 + i * 15 + j}[form]
+            2: 3 * pp + (i + 1) * 17 + j + 1, 3: 3 * pp + i * 15 + j}[form]
 
 
-def _t1_inside(form, r, y0, x0, H, R):
+def _t1_inside(form, th, r, y0, x0, H, R):
     if form in (0, 3):
-        gy, gx, ok = _x_pixel(form, r, y0, x0)
+        gy, gx, ok = _x_pixel(form, th, r, y0, x0)
         side = H
     else:
         gy, gx, ok, side = y0 - 1 + r // 16, x0 - 1 + r % 16, True, R
@@ -605,6 +638,11 @@ class _Tile:
 
     def __init__(self, stream):
         self.stream, self.k, self.zeroed = stream, 0, 0
+
+    def _slice(self):
+        sl = self.stream[self.k % len(self.stream)]
+        self.k += 1
+        return sl[_at(_C)].astype(np.float64)
 
     def mma(self, src, npix, slabs, px, taps):
         """(rows, 64) int64 accumulators over the next taps x slabs slices:
@@ -623,11 +661,20 @@ class _Tile:
             p = px(t)
             assert p.min() >= 0 and p.max() < npix
             for s in range(slabs):
-                sl = self.stream[self.k % len(self.stream)]
-                self.k += 1
                 A = src[s * npix * 64 + _at(p)].astype(np.float64)
-                B = sl[_at(_C)].astype(np.float64)
-                acc += A @ B.T          # exact: |acc| < 2^53
+                acc += A @ self._slice().T      # exact: |acc| < 2^53
+        return acc.astype(np.int64)
+
+    def mma_x(self, xs, slabs, px, taps):
+        """The same over a wide form's streamed input: slabs outermost, each
+        the next slot of the slab ring, every tap of a slab before the next."""
+        acc = np.zeros((len(px(0)), 64))
+        for _ in range(slabs):
+            slot = xs.next()
+            for t in range(taps):
+                p = px(t)
+                assert p.min() >= 0 and p.max() < xs.npix
+                acc += slot[_at(p)].astype(np.float64) @ self._slice().T
         return acc.astype(np.int64)
 
     def plane(self, dst, npix, n, rows, acc, f, b, inside=None):
@@ -640,6 +687,62 @@ class _Tile:
         dst[n * npix * 64 + _at(rows)] = v
 
 
+class _XStream:
+    """A wide form's input stream (x_load / x_next): step j of the block's
+    stream (tile j // nsteps in the walk's order, step j % nsteps: slab
+    j % nsteps % cs of the first conv's region) lands in slot j % xr; with
+    two slots step j + 1 is copied when step j is taken, except across an
+    entry block's tiles (``proj``: its projection input takes the slots'
+    place until the tile ends), whose first step is copied at the tile's
+    start; with one slot step j itself.  load(tile, False, s) gives slab s
+    of the tile's region as (XPIX, 64) bytes.  From NCHW codes (``kept``, a
+    dict: the block's scratch) a tile's first cs steps gather their slab
+    and keep its image; the later steps copy the image back, which must be
+    the same tile's."""
+
+    def __init__(self, xr, npix, ntiles, nsteps, cs, load, proj, kept=None):
+        self.xr, self.npix, self.j, self.last = xr, npix, 0, -1
+        self.ntiles, self.nsteps, self.cs = ntiles, nsteps, cs
+        self.load, self.proj, self.kept = load, proj, kept
+        self.slots = [np.full(npix * 64, SLOT_FILL, np.int8)
+                      for _ in range(xr)]
+
+    def _copy(self, j):
+        tl, st = divmod(j, self.nsteps)
+        if tl >= self.ntiles:
+            return
+        s = st % self.cs
+        if self.kept is None:
+            rows = self.load(tl, False, s)
+        elif st < self.cs:
+            rows = self.load(tl, False, s)
+            self.kept[s] = (tl, rows)
+        else:
+            t0, rows = self.kept[s]
+            assert t0 == tl
+        self.slots[j % self.xr][_at(np.arange(len(rows)))] = rows
+        self.last = j
+
+    def start_tile(self):
+        if self.xr == 2 and (self.proj or self.j == 0):
+            self._copy(self.j)
+
+    def next(self):
+        if self.xr == 1:
+            self._copy(self.j)
+        elif not self.proj or (self.j + 1) % self.nsteps:
+            self._copy(self.j + 1)
+        self.j += 1
+        return self.slots[(self.j - 1) % self.xr]
+
+    def overwrite(self):
+        """The projection input takes the slots' place: no copy may be in
+        flight into them, and what they held is gone."""
+        assert self.last == self.j - 1 and self.j % self.nsteps == 0
+        for slot in self.slots:
+            slot[:] = SLOT_FILL
+
+
 def _affine_np(acc, f, b):
     return acc.astype(np.float32) * f + b
 
@@ -648,28 +751,44 @@ def _requant_np(acc, f, b):
     return np.clip(_affine_np(acc, f, b), 0.0, 127.99).astype(np.int8)
 
 
-def _x_from_nchw(xn, form, cs, y0, x0, H):
-    """A stage's first block: the input region gathered from the stage's
-    (C, H, H) int8 NCHW codes as load_nchw does, element i of the loop at
-    channel i // XPIX, region pixel i % XPIX; channels >= C and pixels off
-    the image (or in a phase plane's pad) are 0.  Every byte is written."""
-    XPIX = GEO[form][2]
-    i = np.arange(cs * 64 * XPIX)
-    c, p = i // XPIX, i % XPIX
-    gy, gx, ok = _x_pixel(form, p, y0, x0)
-    ok &= (c < xn.shape[0]) & (gy >= 0) & (gy < H) & (gx >= 0) & (gx < H)
-    dst = (c >> 6) * XPIX * 64 + _swz(p, (c >> 4) & 3) + (c & 15)
-    assert np.array_equal(np.sort(dst), i)
+def _rows_in(xh, nchw, img, s, gy, gx, ok, H):
+    """(len(gy), 64) bytes of input slab s at pixels (gy, gx), 0 where not
+    ok, from the (C, H, H) NCHW codes (channels >= C zero) or the (H, H,
+    Cp) NHWC plane."""
+    out = np.zeros((len(gy), 64), np.int8)
+    ok = ok & (gy >= 0) & (gy < H) & (gx >= 0) & (gx < H)
+    if nchw:
+        c = np.arange(64 * s, min(64 * s + 64, xh.shape[1]))
+        if len(c):
+            out[np.ix_(ok, c - 64 * s)] = xh[img][:, gy[ok], gx[ok]][c].T
+    else:
+        out[ok] = xh[img, gy[ok], gx[ok], 64 * s:64 * s + 64]
+    return out
+
+
+def _x_resident(xh, nchw, img, form, th, cs, y0, x0, H):
+    """A resident form's input region, every slab.  From NCHW codes as
+    load_nchw_slab walks a slab: item i the 16 channels i // XPIX of
+    region pixel i % XPIX, every 16-byte chunk of the slab written once."""
+    XPIX = _geo(form, th)[0]
+    p = np.arange(XPIX)
+    gy, gx, ok = _x_pixel(form, th, p, y0, x0)
+    if nchw:
+        i = np.arange(4 * XPIX)
+        dst = _swz(i % XPIX, i // XPIX)
+        assert np.array_equal(np.sort(dst), 16 * i)
     X = np.zeros(cs * XPIX * 64, np.int8)
-    X[dst[ok]] = xn.reshape(-1)[((c * H + gy) * H + gx)[ok]]
+    for s in range(cs):
+        X[s * XPIX * 64 + _at(p)] = _rows_in(xh, nchw, img, s, gy, gx, ok, H)
     return X
 
 
 def _emulate_block(xh, H, blk, zero_pad=True, nchw=False):
     """The block kernel on an (N, H, H, cin) int8 NHWC plane, or (``nchw``,
-    a stage's first block) on the stage's (N, C, H, H) int8 codes (numpy)."""
-    form = blk.form
-    TH, TW, XPIX, C1R = GEO[form]
+    a stage's first block) on the stage's (N, C, H, H) int8 codes (numpy),
+    at the block's geometry (blk.th tile rows, blk.xr slab slots)."""
+    form, TH, xr = blk.form, blk.th, blk.xr
+    XPIX, C1R, _ = _geo(form, TH)
     OUT = TH * TW
     stream, tab = blk.stream.numpy(), blk.tab.numpy()
     N, cin = xh.shape[0], blk.widths()[0]
@@ -690,138 +809,128 @@ def _emulate_block(xh, H, blk, zero_pad=True, nchw=False):
            else np.zeros((N, R, R, cout), np.int8))
     m = np.arange(OUT)
     zeroed = 0
-    for img in range(N):
-        for t in range(ty * tx):
-            y0, x0 = (t // tx) * TH, (t % tx) * TW
-            tile = _Tile(stream)
-            if nchw:
-                X = _x_from_nchw(xh[img], form, cs, y0, x0, H)
-            else:
-                X = np.zeros(cs * XPIX * 64, np.int8)
-                p = np.arange(XPIX)
-                gy, gx, ok = _x_pixel(form, p, y0, x0)
-                ok &= (gy >= 0) & (gy < H) & (gx >= 0) & (gx < H)
-                for s in range(cs):
-                    X[s * XPIX * 64 + _at(p[ok])] = \
-                        xh[img, gy[ok], gx[ok], 64 * s:64 * s + 64]
-            T1 = np.zeros((ms if bot else os_) * C1R * 64, np.int8)
-            r = np.arange(C1R)
-            inside = (_t1_inside(form, r, y0, x0, H, R) if zero_pad
-                      else None)
-            if bot:
-                for g0 in range(0, C1R, 256):
-                    rows = r[g0:g0 + 256]
-                    for n in range(ms):
-                        acc = tile.mma(X, XPIX, cs, lambda t: rows, 1)
-                        tile.plane(T1, C1R, n, rows, acc, f1, b1,
-                                   None if inside is None
-                                   else inside[g0:g0 + 256])
-                T2 = np.zeros(ms * OUT * 64, np.int8)
+
+    def corner(tl):
+        t = tl % (ty * tx)
+        return tl // (ty * tx), (t // tx) * TH, (t % tx) * TW
+
+    def load(tl, pj, s):
+        img, y0, x0 = corner(tl)
+        if pj:
+            gy, gx = _proj_pixel(form, m, y0, x0)
+            ok = np.ones(OUT, bool)
+        else:
+            gy, gx, ok = _x_pixel(form, TH, np.arange(XPIX), y0, x0)
+        return _rows_in(xh, nchw, img, s, gy, gx, ok, H)
+
+    nsteps = -(-C1R // 256) * ms * cs if bot else os_ * cs
+    proj = blk.proj is not None
+    xs = (_XStream(xr, XPIX, N * ty * tx, nsteps, cs, load, proj,
+                   {} if nchw else None) if xr else None)
+
+    def from_x(slabs, px, taps):
+        if xr:
+            return tile.mma_x(xs, slabs, px, taps)
+        return tile.mma(X, XPIX, slabs, px, taps)
+
+    def proj_input(tl):
+        """A wide entry block's projection input after its first conv:
+        slab s of the OUT pixels at s * OUT * 64."""
+        xs.overwrite()
+        P = np.zeros(cs * OUT * 64, np.int8)
+        for s_ in range(cs):
+            P[s_ * OUT * 64 + _at(m)] = load(tl, True, s_)
+        return P
+
+    for tl in range(N * ty * tx):
+        img, y0, x0 = corner(tl)
+        tile = _Tile(stream)
+        if xr:
+            xs.start_tile()
+        else:
+            X = _x_resident(xh, nchw, img, form, TH, cs, y0, x0, H)
+        T1 = np.zeros((ms if bot else os_) * C1R * 64, np.int8)
+        r = np.arange(C1R)
+        inside = (_t1_inside(form, TH, r, y0, x0, H, R) if zero_pad
+                  else None)
+        if bot:
+            for g0 in range(0, C1R, 256):
+                rows = r[g0:g0 + 256]
                 for n in range(ms):
-                    acc = tile.mma(T1, C1R, ms, lambda t: _c2(form, m, t), 9)
-                    tile.plane(T2, OUT, n, m, acc, f2, b2)
-                src, npix, slabs, taps = T2, OUT, ms, 1
-                px = lambda t: m                                 # noqa: E731
-            else:
-                for n in range(os_):
-                    acc = tile.mma(X, XPIX, cs, lambda t: _c1(form, r, t), 9)
-                    tile.plane(T1, C1R, n, r, acc, f1, b1, inside)
-                src, npix, slabs, taps = T1, C1R, os_, 9
-                px = lambda t: _c2(form, m, t)                   # noqa: E731
+                    acc = from_x(cs, lambda t: rows, 1)
+                    tile.plane(T1, C1R, n, rows, acc, f1, b1,
+                               None if inside is None
+                               else inside[g0:g0 + 256])
+            if xr and proj:
+                P = proj_input(tl)
+            T2 = np.zeros(ms * OUT * 64, np.int8)
+            for n in range(ms):
+                acc = tile.mma(T1, C1R, ms, lambda t: _c2(form, TH, m, t), 9)
+                tile.plane(T2, OUT, n, m, acc, f2, b2)
+            src, npix, slabs, taps = T2, OUT, ms, 1
+            px = lambda t: m                                     # noqa: E731
+        else:
             for n in range(os_):
-                ch = slice(64 * n, 64 * n + 64)
-                if blk.proj is not None:
-                    acc = tile.mma(X, XPIX, cs,
-                                   lambda t: _res_px(form, m), 1)
-                    v = np.clip(np.floor(_affine_np(acc, fd[ch], bd[ch])),
-                                -127, 127).astype(np.int8)
-                    RES = np.zeros(OUT * 64, np.int8)
-                    RES[_at(m)] = v
-                    res = RES[_at(m)]
-                else:
-                    res = X[n * XPIX * 64 + _at(_res_px(form, m))]
-                acc = tile.mma(src, npix, slabs, px, taps)
-                y = (_affine_np(acc, fin[0][ch], fin[1][ch])
-                     + res.astype(np.float32) * sx)
-                oy, ox = y0 + m // TW, x0 + m % TW
-                keep = (oy < R) & (ox < R)
-                if blk.last:
-                    # channel-major staging, NCHW pixel pairs
-                    stg = np.zeros(64 * SP, np.float32)
-                    bf = torch.from_numpy(np.maximum(y, 0)).to(
-                        torch.bfloat16).float().numpy()
-                    stg[_C[None, :] * SP + m[:, None]] = bf
-                    pair = m[0::2]
-                    for c in range(64):
-                        for e in range(2):
-                            mm = pair + e
-                            k = keep[mm]
-                            out[img, 64 * n + c, oy[mm][k], ox[mm][k]] = \
-                                stg[c * SP + mm[k]]
-                else:
-                    stg = np.zeros(OUT * 64, np.int8)
-                    stg[_at(m)] = np.clip(y, 0.0, 127.99).astype(np.int8)
-                    for q in range(4):
-                        rows16 = stg[(_swz(m, q))[:, None] + np.arange(16)]
-                        out[img, oy[keep], ox[keep],
-                            64 * n + 16 * q:64 * n + 16 * q + 16] = \
-                            rows16[keep]
-            assert tile.k == len(stream)      # one pass of the stream per tile
-            zeroed += tile.zeroed
+                acc = from_x(cs, lambda t: _c1(form, TH, r, t), 9)
+                tile.plane(T1, C1R, n, r, acc, f1, b1, inside)
+            if xr and proj:
+                P = proj_input(tl)
+            src, npix, slabs, taps = T1, C1R, os_, 9
+            px = lambda t: _c2(form, TH, m, t)                   # noqa: E731
+        oy, ox = y0 + m // TW, x0 + m % TW
+        keep = (oy < R) & (ox < R)
+        for n in range(os_):
+            ch = slice(64 * n, 64 * n + 64)
+            if proj:
+                acc = (tile.mma(P, OUT, cs, lambda t: m, 1) if xr else
+                       tile.mma(X, XPIX, cs, lambda t: _res_px(form, TH, m),
+                                1))
+                v = np.clip(np.floor(_affine_np(acc, fd[ch], bd[ch])),
+                            -127, 127).astype(np.int8)
+                RES = np.zeros(OUT * 64, np.int8)
+                RES[_at(m)] = v
+                res = RES[_at(m)]
+            elif xr:    # read from the block's input, the tile's pixels
+                res = _rows_in(xh, nchw, img, n, oy, ox, keep, H)
+            else:
+                res = X[n * XPIX * 64 + _at(_res_px(form, TH, m))]
+            acc = tile.mma(src, npix, slabs, px, taps)
+            y = (_affine_np(acc, fin[0][ch], fin[1][ch])
+                 + res.astype(np.float32) * sx)
+            if blk.last:
+                # channel-major staging, NCHW pixel pairs
+                stg = np.zeros(64 * SP, np.float32)
+                bf = torch.from_numpy(np.maximum(y, 0)).to(
+                    torch.bfloat16).float().numpy()
+                stg[_C[None, :] * SP + m[:, None]] = bf
+                pair = m[0::2]
+                for c in range(64):
+                    for e in range(2):
+                        mm = pair + e
+                        k = keep[mm]
+                        out[img, 64 * n + c, oy[mm][k], ox[mm][k]] = \
+                            stg[c * SP + mm[k]]
+            else:
+                stg = np.zeros(OUT * 64, np.int8)
+                stg[_at(m)] = np.clip(y, 0.0, 127.99).astype(np.int8)
+                for q in range(4):
+                    rows16 = stg[(_swz(m, q))[:, None] + np.arange(16)]
+                    out[img, oy[keep], ox[keep],
+                        64 * n + 16 * q:64 * n + 16 * q + 16] = rows16[keep]
+        assert tile.k == len(stream)      # one pass of the stream per tile
+        zeroed += tile.zeroed
+    if xr:                                # every step of every tile, once
+        assert xs.j == N * ty * tx * nsteps
     return out, R, zeroed
 
 
-def _conv_np(x, h, c, epi, res=None, sx=0.0):
-    """The per-conv kernel on an (N, h, h, Cp) int8 NHWC plane (numpy): the
-    implicit GEMM over its packed tap-major A operand, then epilogue epi."""
-    A, f, b = (v.numpy() for v in c.padded)
-    k, st, pad = c.k, c.stride, c.k // 2
-    A = A.reshape(A.shape[0], k * k, x.shape[3]).astype(np.float64)
-    ho = (h + 2 * pad - k) // st + 1
-    xp = np.pad(x, ((0, 0), (pad, pad), (pad, pad), (0, 0))).astype(np.float64)
-    acc = np.zeros((x.shape[0], ho, ho, A.shape[0]))
-    for t in range(k * k):
-        dy, dx = divmod(t, k)
-        acc += xp[:, dy:dy + st * (ho - 1) + 1:st,
-                  dx:dx + st * (ho - 1) + 1:st] @ A[:, t].T
-    v = _affine_np(acc.astype(np.int64), f, b)
-    if epi == ts.EPI_RELU:
-        return np.clip(v, 0.0, 127.99).astype(np.int8), ho
-    if epi == ts.EPI_RES:
-        return np.clip(np.floor(v), -127, 127).astype(np.int8), ho
-    y = v + res.astype(np.float32) * np.float32(sx)
-    if epi == ts.EPI_SUM:
-        return np.clip(y, 0.0, 127.99).astype(np.int8), ho
-    bf = torch.from_numpy(np.maximum(y, 0)).to(torch.bfloat16).float()
-    return bf.numpy().transpose(0, 3, 1, 2), ho
-
-
-def _emulate_convs(x, h, blk):
-    """A block too wide to fuse, conv by conv as _run_convs launches it."""
-    res = x
-    if blk.proj is not None:
-        res, _ = _conv_np(x, h, blk.proj, ts.EPI_RES)
-    t, ho = x, h
-    for c in blk.convs[:-1]:
-        t, ho = _conv_np(t, ho, c, ts.EPI_RELU)
-    return _conv_np(t, ho, blk.convs[-1],
-                    ts.EPI_LAST if blk.last else ts.EPI_SUM, res, blk.sx_res)
-
-
 def _emulate_stage(xq, plan, zero_pad=True):
-    """stagen_stage's chain: fused blocks through the block kernel's copy
-    (the first reading the NCHW codes), the others conv by conv."""
+    """stagen_stage's chain: every block through the block kernel's copy,
+    the first reading the NCHW codes."""
     cur, h, zeroed = xq.numpy(), xq.shape[2], 0
     for i, blk in enumerate(plan.blocks):
-        if blk.fused:
-            cur, h, z = _emulate_block(cur, h, blk, zero_pad, nchw=i == 0)
-            zeroed += z
-        else:
-            if i == 0:
-                cp = ts._cpad(cur.shape[1])
-                cur = np.pad(cur.transpose(0, 2, 3, 1),
-                             ((0, 0),) * 3 + ((0, cp - cur.shape[1]),))
-            cur, h = _emulate_convs(cur, h, blk)
+        cur, h, z = _emulate_block(cur, h, blk, zero_pad, nchw=i == 0)
+        zeroed += z
     return torch.from_numpy(cur[:, :plan.cout]).to(torch.bfloat16), zeroed
 
 
@@ -839,19 +948,26 @@ LAYOUT_CASES = [
     (("bottleneck", 16, 8, 32, 2, 2, 48), 2),
     (("basic", 16, 32, 32, 1, 1, 28), 1),
     (("bottleneck", 32, 8, 32, 3, 1, 24), 1),
-    # too wide to fuse: ResNet-18 layer3 at 448 (the entry conv by conv,
-    # the identity block fused), two blocks of ResNet-50 layer3 at 384
+    # the wide forms: ResNet-18 layer3 at 448 (the entry streamed on one
+    # slab slot, the identity block resident) and layer4 at 768 (the entry
+    # at 7 tile rows, the identity block on two slots), two blocks of
+    # ResNet-50 layer3 at 384 (R = 24, ragged at 7 rows; the entry on one
+    # slab slot, the identity block on two) and of layer4 at 768 (3 and 7
+    # tile rows)
     (("basic", 128, 256, 256, 2, 2, 56), 1),
+    (("basic", 256, 512, 512, 2, 2, 48), 1),
     (("bottleneck", 512, 256, 1024, 2, 2, 48), 1),
+    (("bottleneck", 1024, 512, 2048, 2, 2, 48), 1),
 ] + [(c, 2) for c in OP_CASES]
 
 
 @pytest.mark.parametrize("case,batch", LAYOUT_CASES)
 def test_block_kernel_layouts_reproduce_plain(case, batch):
     """The block kernel's decomposition (numpy copies of its tiles, phase
-    planes, swizzled planes and weight slices, stream order, epilogues and
-    stores) gives stagen_plain's output bit for bit; t1 / mid pixels outside
-    the image must be zeroed, not requantized (trunc(b) is not 0)."""
+    planes, swizzled planes and weight slices, stream order, the wide
+    forms' slab ring and residual reads, epilogues and stores) gives
+    stagen_plain's output bit for bit; t1 / mid pixels outside the image
+    must be zeroed, not requantized (trunc(b) is not 0)."""
     x, blocks, w = _stage(case, 7, batch)
     plan = ts._fold(_torch_w(w), blocks, torch.device("cpu"))
     xq = ts.stagen_prologue(torch.as_tensor(x), plan.s_in)
@@ -864,57 +980,71 @@ def test_block_kernel_layouts_reproduce_plain(case, batch):
     assert zeroed > 0 or case[0] == "bottleneck"
 
 
-# (stage, which blocks fuse): every stage of ResNet-18/34 and ResNet-50/101/
-# 152 at full width, entry and one identity block (later identity blocks are
-# the same form); the 224 stages all fuse, the wide ones go conv by conv
+# (stage, each block's geometry as (tile rows, input slab slots; 0 the
+# resident input)): every stage of ResNet-18/34 and ResNet-50/101/152 at
+# full width, entry and one identity block (later identity blocks are the
+# same form); the 224 stages all take the resident forms, the wide ones the
+# streamed forms
 ROUTE_CASES = [
-    (("basic", 64, 64, 64, 2, 1, 56), [True, True]),
-    (("basic", 64, 128, 128, 2, 2, 56), [True, True]),
-    (("basic", 128, 256, 256, 2, 2, 56), [False, True]),
-    (("basic", 256, 512, 512, 2, 2, 48), [False, False]),
-    (("bottleneck", 64, 64, 256, 2, 1, 56), [True, True]),
-    (("bottleneck", 256, 128, 512, 2, 2, 56), [True, True]),
-    (("bottleneck", 512, 256, 1024, 2, 2, 48), [False, False]),
-    (("bottleneck", 1024, 512, 2048, 2, 2, 48), [False, False]),
+    (("basic", 64, 64, 64, 2, 1, 56), [(14, 0), (14, 0)]),
+    (("basic", 64, 128, 128, 2, 2, 56), [(14, 0), (14, 0)]),
+    (("basic", 128, 256, 256, 2, 2, 56), [(14, 1), (14, 0)]),
+    (("basic", 256, 512, 512, 2, 2, 48), [(7, 2), (14, 2)]),
+    (("bottleneck", 64, 64, 256, 2, 1, 56), [(14, 0), (14, 0)]),
+    (("bottleneck", 256, 128, 512, 2, 2, 56), [(7, 0), (14, 0)]),
+    (("bottleneck", 512, 256, 1024, 2, 2, 48), [(7, 1), (14, 2)]),
+    (("bottleneck", 1024, 512, 2048, 2, 2, 48), [(3, 2), (7, 2)]),
 ]
 
 
-@pytest.mark.parametrize("case,fused", ROUTE_CASES)
-def test_every_eligible_width_has_a_kernel_route(case, fused):
-    """Every block of an eligible stage has a CUDA route whatever its width:
-    one block kernel launch where its layout fits 227 KB (the budget is the
-    kernel's layout: the input region, t1 / mid, t2, the projection
-    residual, the staging and the weight ring), else the per-conv kernel,
-    with its packed operands.  The layout's size does not depend on R."""
+@pytest.mark.parametrize("case,geometry", ROUTE_CASES)
+def test_every_eligible_width_has_a_kernel_route(case, geometry):
+    """Every block of an eligible stage is one block kernel launch whatever
+    its width: its geometry is the first of its form's that fits 227 KB
+    (the budget is the kernel's layout: the input region, resident or as
+    slab slots, t1 / mid, t2, the projection residual, the staging and the
+    weight ring; it does not depend on R), and it carries its packed stream
+    and tables and no per-conv operands."""
     _, blocks, w = _stage(case, 3, 1)
     plan = ts._fold(_torch_w(w), blocks, torch.device("cpu"))
-    assert [b.fused for b in plan.blocks] == fused
+    assert [(b.th, b.xr) for b in plan.blocks] == geometry
     for blk in plan.blocks:
-        cin, cmid, cout = blk.widths()
+        args = (*blk.widths(), blk.proj is not None, blk.last)
+        need = ts._block_smem(blk.form, blk.th, blk.xr, *args)
+        assert need == blk.smem == _layout_bytes(blk.form, blk.th, blk.xr,
+                                                 *args) <= 232448
+        tried = ts._GEOMETRIES[blk.form]
+        for th, xr in tried[:tried.index((blk.th, blk.xr))]:
+            assert _layout_bytes(blk.form, th, xr, *args) > 232448
+        assert ts._geo(blk.form, blk.th)[2:] == _geo(blk.form, blk.th)[:2]
+        cs, ms, os_ = (c // 64 for c in blk.widths())
         proj = blk.proj is not None
-        need = ts._block_smem(blk.form, cin, cmid, cout, proj, blk.last)
-        th, tw, xpix, c1 = GEO[blk.form]
-        assert need >= xpix * cin + th * tw * 64 + 6 * 4096
-        assert blk.fused == (need <= 232448)
+        want = (-(-_geo(blk.form, blk.th)[1] // 256) * ms * cs + 9 * ms * ms
+                + os_ * (cs * proj + ms) if blk.kind == "bottleneck"
+                else os_ * 9 * cs + os_ * (cs * proj + 9 * os_))
+        assert blk.stream.shape == (want, 4096) and blk.tab is not None
         every = blk.convs + ([blk.proj] if proj else [])
-        if blk.fused:
-            assert blk.stream is not None and all(c.padded is None
-                                                  for c in every)
-            continue
-        assert blk.stream is None and blk.tab is None
-        for c in every:
-            A, f, b = c.padded
-            wp = ts._padded(c)
-            assert A.shape == (wp.shape[0], wp.shape[2] * wp.shape[1])
-            # A[o, t*Cp + c] = w[o, c, tap t]
-            np.testing.assert_array_equal(
-                A.numpy().reshape(wp.shape[0], wp.shape[2], wp.shape[1]),
-                wp.transpose(0, 2, 1))
-            np.testing.assert_array_equal(f.numpy()[:c.f.shape[0]], c.f.numpy())
-            assert not f.numpy()[c.f.shape[0]:].any()
-    # the 224 stages of both models fuse every block (ResNet-50's layer2
+        assert not any(hasattr(c, "padded") for c in every)
+    # the 224 stages of both models keep their layouts (ResNet-50's layer2
     # entry is the tightest: 227808 of 232448 bytes)
-    assert ts._block_smem(3, 256, 128, 512, True, False) == 227808
+    assert ts._block_smem(3, 7, 0, 256, 128, 512, True, False) == 227808
+
+
+def test_a_block_that_fits_no_geometry_has_no_route():
+    """A basic block 1024 wide (no ResNet has one) fits no geometry: its
+    plan names the bytes of its smallest layout and holds no stream; the
+    plain version still runs it on the CPU (on the card stagen_stage
+    raises: tests/test_torch_cuda.py)."""
+    case = ("basic", 1024, 1024, 1024, 1, 1, 24)
+    x, blocks, w = _stage(case, 3, 1)
+    plan = ts._fold(_torch_w(w), blocks, torch.device("cpu"))
+    blk = plan.blocks[0]
+    assert blk.th is None and blk.stream is None
+    assert blk.smem == min(_layout_bytes(1, th, xr, 1024, 1024, 1024, False,
+                                         True)
+                           for th, xr in ts._GEOMETRIES[1]) > 232448
+    xq = ts.stagen_prologue(torch.as_tensor(x), plan.s_in)
+    assert ts.stagen_stage(xq, plan).shape == (1, 1024, 24, 24)
 
 
 @pytest.mark.parametrize("case,bias", [
