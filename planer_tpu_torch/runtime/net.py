@@ -8,12 +8,15 @@ has no bfloat16 without ``ml_dtypes``).
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..ir import FlowEdge, Graph, Layer, unpack_weights
 from ..ops import fp8
+from . import profiler as _prof
 from .executor import Executor
 from .program import Program
 
@@ -29,6 +32,12 @@ def _numpy(v):
         v = v.detach().cpu()
         return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
     return np.asarray(v)
+
+
+def _nbytes(v) -> int:
+    if isinstance(v, tuple):
+        return sum(_nbytes(t) for t in v)
+    return v.nbytes
 
 
 class Net:
@@ -201,13 +210,23 @@ class Net:
 
     def __call__(self, *x, **kw):
         """Inputs as arrays or tensors (or one dict by input name); outputs
-        as numpy arrays, like the JAX package's Net."""
-        if x and isinstance(x[0], dict):
-            x = [x[0][i] for i in self.graph.inputs]
-        rst = self.forward(*x, **kw)
-        if isinstance(rst, tuple) and len(rst) == 1:
-            return _numpy(rst[0])
-        return _numpy(rst)
+        as numpy arrays, like the JAX package's Net.  Under
+        ``profiler.record`` the call is the span ``net.call`` and its copy
+        out ``net.to_numpy``, which counts the bytes handed out."""
+        rec = _prof.RECORDING
+        with _prof.NO_SPAN if rec is None else rec.span("net.call") as call:
+            if x and isinstance(x[0], dict):
+                x = [x[0][i] for i in self.graph.inputs]
+            rst = self.forward(*x, **kw)
+            if isinstance(rst, tuple) and len(rst) == 1:
+                rst = rst[0]
+            if rec is None:
+                return _numpy(rst)
+            t = time.time_ns()
+            out = _numpy(rst)
+            rec.step(call, "net.to_numpy", t)
+            rec.count("out_bytes", _nbytes(out))
+            return out
 
     def run(self, output=None, input={}, **kw):
         """onnxruntime-style entry point."""

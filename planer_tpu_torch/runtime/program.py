@@ -45,11 +45,22 @@ The program keeps the tracer's decisions and its compile step:
 
 ``_run`` is the eager loop the entry is resolved from (every record folded
 again at every call): the reference a caller holds the compiled entry
-against.  While ``profiler.trace`` is active (the module flag ``TRACING``,
-read once per call), the program runs the entry's list eagerly, each
-dynamic application inside ``torch.profiler.record_function(<IR layer
-name>)``, the counterpart of the tracer's ``jax.named_scope``; outside a
-trace no scope is entered.  ``lowered_text`` is the text of the entry at a
+against.  While ``profiler.trace`` is active with its layers (the module
+flag ``TRACING``, read once per call), the program runs the entry's list
+eagerly, each dynamic application inside
+``torch.profiler.record_function(<IR layer name>)``, the counterpart of
+the tracer's ``jax.named_scope``; outside such a trace no scope is
+entered.  While ``profiler.record`` is active (``profiler.RECORDING``, read
+once per call), a call takes the same steps inside its spans:
+``program.call`` around ``program.inputs`` (the inputs as tensors, the
+key, the lookup), then on a replay ``program.copy_in``,
+``program.replay``, ``program.copy_out`` and ``program.finish``, or
+``program.eager`` and ``program.finish`` where the list runs uncaptured;
+``_compile`` and ``_capture`` are the spans ``program.compile`` and
+``program.capture``.  It counts the caller's input bytes copied in by
+where they live (``in_bytes.pageable``, ``.pinned``, ``.device``),
+``replays``, ``eager_runs``, ``compiles`` and ``captures``.  Off, a call
+reads the flag and no clock.  ``lowered_text`` is the text of the entry at a
 signature; ``cost_analysis`` counts the work of the graph at given input
 shapes, the counterpart of XLA's cost analysis of the compiled program.
 
@@ -84,6 +95,7 @@ from ..ops import torch_ops as tops
 from ..ops.qtypes import QTensor
 from ..ops.torch_ops import to_dtype
 from ..registry import get_op
+from . import profiler as _prof
 from .executor import Executor
 
 __all__ = ["Program", "analyze", "GraphPlan"]
@@ -613,6 +625,7 @@ class Program:
                 self._compile(key, inputs)
             return self._cache[key]
 
+    @_prof.spanned("program.compile", "compiles")
     @float32_exact()
     def _compile(self, key, inputs, scoped=False):
         """Walk the flow once at ``key`` (on CUDA: the warm run, on the
@@ -639,6 +652,7 @@ class Program:
         self._cache[key] = entry
         return self._finish(env, senv)
 
+    @_prof.spanned("program.capture", "captures")
     @float32_exact()
     def _capture(self, entry, inputs):
         """Capture the entry's list into a CUDA graph with static input
@@ -678,36 +692,64 @@ class Program:
         entry.capture_ms = 1e3 * (time.perf_counter() - t0)
         entry.graph = graph
 
-    def _replay(self, entry, inputs):
-        """Copy the inputs in, replay, and copy each output out."""
-        for buf, x in zip(entry.static_in, inputs):
-            buf.copy_(x)
-        entry.graph.replay()
-        out = {n: _fresh(v) for n, v in entry.static_out.items()}
-        for c, d in zip(_counters(), entry.delta):
-            c.update(d)
-        return out
-
     @torch.inference_mode()
     @float32_exact()
     def __call__(self, *inputs):
         """Run the entry at these inputs' key: compile it on first use
-        (answering from the walk), replay its graph on the card, run its
-        list elsewhere or while traced."""
-        inputs = self._inputs(inputs)
-        scoped = TRACING
-        with self._lock:
-            key = self._key(inputs)
-            entry = self._cache.get(key)
-            if entry is None:
-                return self._compile(key, inputs, scoped)
-            if scoped or not self._captures():
-                env = self._run_steps(entry, self._bind(inputs), scoped)
-                return self._finish(env, entry.statics)
-            if entry.graph is None:        # compiled under a trace
-                self._capture(entry, inputs)
-            env = self._replay(entry, inputs)
-        return self._finish(env, entry.statics)
+        (answering from the walk), replay its graph on the card (its inputs
+        copied in, each output copied out), run its list elsewhere or while
+        traced.  Under ``profiler.record`` each step is a span of
+        ``program.call``, with the counters; a replayed call asks where its
+        inputs live only once its replay runs."""
+        rec = _prof.RECORDING
+        with _prof.NO_SPAN if rec is None else \
+                rec.span("program.call") as call:
+            if rec is not None:
+                t = time.time_ns()
+            inputs = self._inputs(inputs)
+            scoped = TRACING
+            with self._lock:
+                key = self._key(inputs)
+                entry = self._cache.get(key)
+                if rec is not None:
+                    t = rec.step(call, "program.inputs", t)
+                if entry is None:
+                    return self._compile(key, inputs, scoped)
+                if scoped or not self._captures():
+                    env = self._run_steps(entry, self._bind(inputs), scoped)
+                    if rec is not None:
+                        rec.count("eager_runs")
+                        t = rec.step(call, "program.eager", t)
+                    out = self._finish(env, entry.statics)
+                    if rec is not None:
+                        rec.step(call, "program.finish", t)
+                    return out
+                if entry.graph is None:        # compiled under a trace
+                    self._capture(entry, inputs)
+                    if rec is not None:
+                        t = time.time_ns()
+                for buf, x in zip(entry.static_in, inputs):
+                    buf.copy_(x)
+                if rec is not None:
+                    t2 = time.time_ns()
+                entry.graph.replay()
+                if rec is not None:
+                    t3 = time.time_ns()
+                    rec.step(call, "program.copy_in", t, t2)
+                    rec.step(call, "program.replay", t2, t3)
+                    for x in inputs:
+                        rec.count("in_bytes." + _prof.where(x), x.nbytes)
+                    rec.count("replays")
+                    t = time.time_ns()
+                env = {n: _fresh(v) for n, v in entry.static_out.items()}
+                for c, d in zip(_counters(), entry.delta):
+                    c.update(d)
+                if rec is not None:
+                    t = rec.step(call, "program.copy_out", t)
+            out = self._finish(env, entry.statics)
+            if rec is not None:
+                rec.step(call, "program.finish", t)
+            return out
 
     # the steps a program over several devices (``parallel``) replaces
     def _bind_input(self, x):

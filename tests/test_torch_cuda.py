@@ -5,6 +5,8 @@ sets JAX up):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -190,3 +192,40 @@ def test_resident_stages_are_one_launch_per_block_and_exact(card, stage):
     assert dict(sg.LAUNCHES) == {f"stagen_block:{plan.tag}": len(blocks)}
     sg.LAUNCHES.clear()
     assert torch.equal(out, sg.stagen_plain(xq, plan))
+
+
+@pytest.mark.cuda
+def test_the_spans_of_a_replay_line_up_with_the_device(card):
+    """A b1 numpy call on a replayed entry records the replay's spans in
+    the call's order, its input's bytes as pageable and one replay.  Under
+    ``profiler.trace(None, layers=False)`` (device activity only), once
+    the device operations are put on the spans' clock at each replay's
+    first kernel (``portbench.spans.align``: kineto's device timestamps
+    can drift from ``time.time_ns`` within a profile), every
+    host-to-device copy starts inside a ``program.copy_in`` span and every
+    answer's device-to-host copy ends inside ``net.to_numpy``."""
+    from planer_tpu_torch.runtime import profiler
+    from portbench import spans
+    net = tm.resnet18(num_classes=8, device="cuda")
+    x = _x((1, 3, 32, 32), 4)
+    net(x)
+    net(x)
+    with profiler.record() as rec:
+        y = net(x)
+    assert [s.name for s in rec.spans] == [
+        "net.call", "program.call", "program.inputs", "program.copy_in",
+        "program.replay", "program.copy_out", "program.finish",
+        "net.to_numpy"]
+    assert rec.counters == {"in_bytes.pageable": x.nbytes, "replays": 1,
+                            "out_bytes": y.nbytes}
+    n = 50
+    with profiler.trace(None, layers=False) as prof:
+        w0 = time.time_ns()
+        for i in range(n):
+            net(_x((1, 3, 32, 32), i))
+        torch.cuda.synchronize()
+        w1 = time.time_ns()
+    sw = spans.reduce(prof, prof.recording, (w0, w1))
+    assert len(sw.shift) == n
+    assert len(sw.htod) == n and None not in sw.htod, sw.htod
+    assert len(sw.dtoh) == n and None not in sw.dtoh, sw.dtoh
