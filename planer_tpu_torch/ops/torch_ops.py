@@ -12,8 +12,9 @@ package's numerics, not just its math:
     reciprocal rounded to float32 — that product is what the reference
     computes (``quantize``).  A scale computed at run time (dynamic
     activation quantization) stays a true division by a device tensor;
-  * s8 x s8 convs accumulate exactly in int32 (``torch._int_mm`` over an
-    im2col): |acc| reaches 127^2 * 4608 > 2^24, past float32's exact range;
+  * s8 x s8 convs accumulate exactly in int32 (``torch._int_mm`` over a
+    patch matrix, ``conv_s8``): |acc| reaches 127^2 * 4608 > 2^24, past
+    float32's exact range;
   * dequant is ``acc.float() * (sx * w_scale)`` with the scale product taken
     first, cast to the output dtype, and the bias added after the cast;
   * a quantized ``dense``, and with ``_PALLAS_CONV1X1`` a weight-only 1x1
@@ -50,7 +51,9 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
+from ..runtime import profiler as _prof
 from . import modes as _modes
 from . import resize as _rs
 from .padding import resolve_conv_pads, resolve_pool_pads
@@ -155,42 +158,97 @@ def _promote(a, b):
     return a, b
 
 
-def _im2col(x, kh, kw, strides, pads, dilations):
-    """(N, C, H, W) -> ((N*Ho*Wo, C*kh*kw) patches in (c, ky, kx) order,
-    (N, Ho, Wo)); any dtype, zero padding."""
-    pt, pl, pb, pr = pads
-    x = F.pad(x, (pl, pr, pt, pb)).contiguous()
-    n, c, h, w = x.shape
-    sh, sw = strides
-    dh, dw = dilations
-    ho = (h - (kh - 1) * dh - 1) // sh + 1
-    wo = (w - (kw - 1) * dw - 1) // sw + 1
-    sn, sc, sy, sx = x.stride()
-    v = x.as_strided((n, ho, wo, c, kh, kw),
-                     (sn, sy * sh, sx * sw, sc, sy * dh, sx * dw))
-    return v.reshape(n * ho * wo, c * kh * kw), (n, ho, wo)
+# each s8 conv weight as the GEMM's B operand: (O, kh*kw*C) in (ky, kx, c)
+# order, zero-padded to _int_mm's multiples of 8.  Made once per weight
+# tensor, on its first call (the warm run, before a capture), and dropped
+# with the tensor; keyed by the tensor object, not its storage, so a freed
+# weight's address can never name another.  Weights are constants: a
+# tensor written in place keeps its old matrix, as stage64's and stagen's
+# packed copies do.
+_WMATS = WeakIdKeyDictionary()
+
+
+def _weight_matrix(wq):
+    b = _WMATS.get(wq)
+    if b is None:
+        if _capturing(wq.device):
+            raise RuntimeError(
+                f"s8 conv weight {tuple(wq.shape)} first needed inside a "
+                f"CUDA graph capture; the warm run makes every weight "
+                f"matrix the program uses")
+        o, c, kh, kw = wq.shape
+        k = c * kh * kw
+        b = F.pad(wq.permute(0, 2, 3, 1).reshape(o, k),
+                  (0, (-k) % 8, 0, (-o) % 8)).contiguous()
+        _WMATS[wq] = b
+    return b
+
+
+def _words(x, c):
+    """The int8 tensor ``x`` (last dimension ``c`` channels, stride 1) seen
+    as int64 words where c % 8 == 0, int32 where c % 4 == 0, else bytes."""
+    return (x.view(torch.int64) if c % 8 == 0
+            else x.view(torch.int32) if c % 4 == 0 else x)
 
 
 def conv_s8(q, wq, strides=(1, 1), pads=(0, 0, 0, 0), dilations=(1, 1)):
-    """Exact s8 x s8 -> s32 NCHW conv: ``torch._int_mm`` over an im2col.
+    """Exact s8 x s8 -> s32 NCHW conv: ``torch._int_mm`` over a patch
+    matrix gathered from the codes as they lie in memory.
+
+    The input is read as NHWC: the W8A8 chain's codes are channels-last
+    (this conv's output is an NHWC buffer seen as NCHW), so they are read
+    in place; an NCHW input is copied to NHWC once, into the padded
+    buffer where the conv pads.  The (N*Ho*Wo, kh*kw*C) patch matrix is
+    gathered in (ky, kx, c) order, each pixel's channels moved as 8- or
+    4-byte words (``_words``); a 1x1 stride-1 conv's NHWC input is the
+    matrix itself.  The weight is reordered to match once (``_weight_
+    matrix``); integer sums do not depend on the order of K, so the
+    accumulators are those of any other order.
 
     cuBLAS's int8 GEMM needs M > 16 and K, N multiples of 8, so the operands
     are zero-padded up to those minimums (zeros add nothing to the sums).  It
-    also needs the patch matrix row-major: a 1x1 conv's im2col is a
-    column-major view of the NCHW input (cuBLASLt refuses a leading
-    dimension of H*W = 49 at ResNet-50's layer4, batch 1), so it is made
-    contiguous."""
+    also needs the patch matrix row-major (cuBLASLt refuses a column-major
+    one with a leading dimension of 49 at ResNet-50's layer4, batch 1),
+    which every form here is."""
     o, c, kh, kw = wq.shape
-    a, (n, ho, wo) = _im2col(q, kh, kw, strides, pads, dilations)
-    a = a.contiguous()
-    b = wq.reshape(o, c * kh * kw)
-    m, k = a.shape
-    kpad, opad = (-k) % 8, (-o) % 8
+    rec = _prof.RECORDING
+    x = q.permute(0, 2, 3, 1)
+    n, h, w, _ = x.shape
+    nhwc = x.is_contiguous()
+    pt, pl, pb, pr = pads
+    if pt or pl or pb or pr:
+        xp = x.new_zeros((n, h + pt + pb, w + pl + pr, c))
+        dst = xp[:, pt:pt + h, pl:pl + w]
+        if nhwc:
+            dst, x = _words(dst, c), _words(x, c)
+        dst.copy_(x)
+        x = xp
+    elif not nhwc:
+        x = x.contiguous()
+    sh, sw = strides
+    dh, dw = dilations
+    ho = (x.shape[1] - (kh - 1) * dh - 1) // sh + 1
+    wo = (x.shape[2] - (kw - 1) * dw - 1) // sw + 1
+    m = n * ho * wo
+    if kh == kw == 1 and sh == sw == 1:
+        a, path = x.reshape(m, c), "conv_s8.in_place"
+    else:
+        xw = _words(x, c)
+        sn, sy, sx, sc = xw.stride()
+        a = xw.as_strided((n, ho, wo, kh, kw, xw.shape[3]),
+                          (sn, sy * sh, sx * sw, sy * dh, sx * dw, sc))
+        a = a.reshape(m, -1).view(torch.int8)
+        path = "conv_s8.bytes" if xw is x else "conv_s8.words"
+    if rec is not None:
+        rec.count(path)
+        if not nhwc:
+            rec.count("conv_s8.relayout")
+    b = _weight_matrix(wq)
+    k = a.shape[1]
+    kpad = b.shape[1] - k
     mpad = max(17 - m, 0) if a.is_cuda else 0
     if kpad or mpad:
         a = F.pad(a, (0, kpad, 0, mpad))
-    if kpad or opad:
-        b = F.pad(b, (0, kpad, 0, opad))
     acc = torch._int_mm(a, b.t())[:m, :o]
     return acc.reshape(n, ho, wo, o).permute(0, 3, 1, 2)
 

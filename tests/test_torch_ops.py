@@ -188,6 +188,191 @@ def test_s8_conv_hands_int_mm_a_row_major_matrix(k, stride, monkeypatch):
     np.testing.assert_array_equal(acc, ref.astype(np.int64))
 
 
+def _conv_s8_nchw(q, wq, strides=(1, 1), pads=(0, 0, 0, 0),
+                  dilations=(1, 1)):
+    """The s8 conv as the port ran it before it read channels-last codes:
+    the padded input made NCHW-contiguous, a byte-wise (c, ky, kx) patch
+    matrix, the OIHW weight as it lies.  The oracle of the gather."""
+    o, c, kh, kw = wq.shape
+    pt, pl, pb, pr = pads
+    x = torch.nn.functional.pad(q, (pl, pr, pt, pb)).contiguous()
+    n, _, h, w = x.shape
+    (sh, sw), (dh, dw) = strides, dilations
+    ho = (h - (kh - 1) * dh - 1) // sh + 1
+    wo = (w - (kw - 1) * dw - 1) // sw + 1
+    sn, sc, sy, sx = x.stride()
+    a = x.as_strided((n, ho, wo, c, kh, kw),
+                     (sn, sy * sh, sx * sw, sc, sy * dh, sx * dw))
+    a = a.reshape(n * ho * wo, c * kh * kw)
+    b = wq.reshape(o, c * kh * kw)
+    m, k = a.shape
+    kpad, opad = (-k) % 8, (-o) % 8
+    a = torch.nn.functional.pad(a, (0, kpad))
+    b = torch.nn.functional.pad(b, (0, kpad, 0, opad))
+    acc = torch._int_mm(a, b.t())[:m, :o]
+    return acc.reshape(n, ho, wo, o).permute(0, 3, 1, 2)
+
+
+# name -> (k, stride, dilation, pads)
+S8_GEOMETRIES = {
+    "1x1": (1, 1, 1, (0, 0, 0, 0)),
+    "1x1_s2": (1, 2, 1, (0, 0, 0, 0)),
+    "3x3": (3, 1, 1, (1, 1, 1, 1)),
+    "3x3_s2_upper": (3, 2, 1, (0, 0, 1, 1)),
+    "3x3_d2": (3, 1, 2, (2, 2, 2, 2)),
+    "7x7_s2": (7, 2, 1, (3, 3, 3, 3)),
+}
+# name -> (batch, side): M = 4..16 rows, under _int_mm's 17; or M >= 50
+S8_SIZES = {"m_under_17": (1, 4), "batch2": (2, 9)}
+
+
+@pytest.mark.parametrize("size", list(S8_SIZES))
+@pytest.mark.parametrize("c", [3, 12, 128, 512])
+@pytest.mark.parametrize("geometry", list(S8_GEOMETRIES))
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+def test_s8_conv_equals_int64_reference(layout, geometry, c, size):
+    """conv_s8 equals an int64 reference conv and the NCHW byte gather it
+    replaced, bit for bit, on channels-last codes (the W8A8 chain's) and
+    NCHW ones, for byte (C = 3), int32-word (12) and int64-word (128, 512)
+    gathers, K % 8 != 0 and M under 17 included."""
+    k, s, d, pads = S8_GEOMETRIES[geometry]
+    n, side = S8_SIZES[size]
+    rng = np.random.default_rng(k * 1000 + c + side)
+    x = torch.as_tensor(rng.integers(-127, 128, size=(n, c, side, side),
+                                     dtype=np.int8))
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.as_tensor(rng.integers(-127, 128, size=(20, c, k, k),
+                                     dtype=np.int8))
+    acc = tops.conv_s8(x, w, (s, s), pads, (d, d))
+    pt, pl, pb, pr = pads
+    ref = torch.nn.functional.conv2d(
+        torch.nn.functional.pad(x.double(), (pl, pr, pt, pb)), w.double(),
+        stride=s, dilation=d)
+    assert acc.dtype == torch.int32
+    np.testing.assert_array_equal(acc.numpy(), ref.numpy().astype(np.int64))
+    torch.testing.assert_close(acc, _conv_s8_nchw(x, w, (s, s), pads, (d, d)),
+                               rtol=0, atol=0)
+
+
+# layout, k, C -> the counters of one call
+S8_PATHS = [
+    ("channels_last", 1, 128, {"conv_s8.in_place": 1}),
+    ("nchw", 1, 128, {"conv_s8.in_place": 1, "conv_s8.relayout": 1}),
+    ("channels_last", 3, 128, {"conv_s8.words": 1}),
+    ("nchw", 3, 12, {"conv_s8.words": 1, "conv_s8.relayout": 1}),
+    ("channels_last", 3, 3, {"conv_s8.bytes": 1}),
+]
+
+
+@pytest.mark.parametrize("layout,k,c,want", S8_PATHS)
+def test_s8_conv_counts_its_path(layout, k, c, want, monkeypatch):
+    """Under ``profiler.record`` conv_s8 counts the patch matrix it made:
+    a word or byte gather, or the 1x1 stride-1 input itself (handed to
+    _int_mm with no copy where it arrived channels-last), and an input
+    that arrived NCHW and was copied once."""
+    from planer_tpu_torch.runtime import profiler
+    rng = np.random.default_rng(k + c)
+    x = torch.as_tensor(rng.integers(-127, 128, size=(2, c, 6, 6),
+                                     dtype=np.int8))
+    if layout == "channels_last":
+        x = x.contiguous(memory_format=torch.channels_last)
+    w = torch.as_tensor(rng.integers(-127, 128, size=(16, c, k, k),
+                                     dtype=np.int8))
+    ptrs = []
+    orig = torch._int_mm
+
+    def spy(a, b):
+        ptrs.append(a.data_ptr())
+        return orig(a, b)
+    monkeypatch.setattr(torch, "_int_mm", spy)
+    pads = (k // 2,) * 4
+    with profiler.record() as rec:
+        acc = tops.conv_s8(x, w, (1, 1), pads)
+    assert rec.counters == want
+    assert (ptrs == [x.data_ptr()]) == (want == {"conv_s8.in_place": 1})
+    torch.testing.assert_close(acc, _conv_s8_nchw(x, w, (1, 1), pads),
+                               rtol=0, atol=0)
+    tops.conv_s8(x, w, (1, 1), pads)
+    assert rec.counters == want        # the recording has ended
+
+
+def test_s8_conv_weight_matrix_made_once_per_weight(monkeypatch):
+    """The (O, kh*kw*C) weight matrix is made on a weight's first call,
+    reused by later ones (inside a CUDA graph capture too, where a weight
+    first seen raises, as a device constant does), and dropped with the
+    weight."""
+    import gc
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.integers(-127, 128, size=(1, 16, 5, 5),
+                                     dtype=np.int8))
+    w = torch.as_tensor(rng.integers(-127, 128, size=(10, 16, 3, 3),
+                                     dtype=np.int8))
+    tops.conv_s8(x, w, (1, 1), (1, 1, 1, 1))
+    b = tops._WMATS[w]
+    assert b.shape == (16, 144) and b.is_contiguous()
+    np.testing.assert_array_equal(
+        b[:10].numpy(), w.permute(0, 2, 3, 1).reshape(10, 144).numpy())
+    assert not b[10:].any()
+    monkeypatch.setattr(tops, "_capturing", lambda device: True)
+    tops.conv_s8(x, w, (2, 2), (1, 1, 1, 1))
+    assert tops._WMATS[w] is b
+    with pytest.raises(RuntimeError, match="inside a CUDA graph capture"):
+        tops.conv_s8(x, w.clone(), (1, 1), (1, 1, 1, 1))
+    monkeypatch.undo()
+    n = len(tops._WMATS)
+    del w, b
+    gc.collect()
+    assert len(tops._WMATS) == n - 1
+
+
+def test_int8_resnet18_chain_gathers_words_and_relayouts_at_entries(
+        monkeypatch):
+    """A calibrated static INT8 ResNet-18 (64 px, b2) on the CPU: on its
+    first call, under ``profiler.record``, every s8 conv but the C = 3 stem
+    gathers words, an input is relayout only where it enters a chain of s8
+    convs from an NCHW producer (the stem, each stage64 block's first conv
+    and layer2.0's second, after the cuDNN conv1), and the logits equal,
+    bit for bit, those of the NCHW byte gather."""
+    import planer_tpu_torch as pt
+    from planer_tpu_torch import models as tm
+    from planer_tpu_torch.ops.kernels import stage64 as st
+    from planer_tpu_torch.ops.kernels import stagen as sg
+    from planer_tpu_torch.runtime import profiler
+    rng = np.random.default_rng(0)
+    net = tm.resnet18(num_classes=8, device="cpu")
+    net.optimize()
+    pt.calibrate_act_scales(net, [torch.as_tensor(
+        rng.standard_normal((2, 3, 64, 64)).astype(np.float32))])
+    net.quantize("int8", activations="static")
+    net.astype_compute("bfloat16")
+    x = rng.standard_normal((2, 3, 64, 64)).astype(np.float32)
+    calls = []
+
+    def spy(q, wq, *a, **kw):
+        calls.append((tuple(wq.shape),
+                      not q.permute(0, 2, 3, 1).is_contiguous()))
+        return new(q, wq, *a, **kw)
+    new = tops.conv_s8
+    for mod in (tops, st, sg):
+        monkeypatch.setattr(mod, "conv_s8", spy)
+    with profiler.record() as rec:
+        y = net.program(x)
+    relayouts = [i for i, (_, nchw) in enumerate(calls) if nchw]
+    assert [calls[i][0] for i in relayouts] == [
+        (64, 3, 7, 7), (64, 64, 3, 3), (64, 64, 3, 3), (128, 128, 3, 3)]
+    assert relayouts == [0, 1, 3, 5]
+    assert len(calls) == 18 and calls[-1][0] == (512, 512, 3, 3)
+    counters = {k: v for k, v in rec.counters.items()
+                if k.startswith("conv_s8.")}
+    assert counters == {"conv_s8.bytes": 1, "conv_s8.words": 17,
+                        "conv_s8.relayout": 4}
+    for mod in (tops, st, sg):
+        monkeypatch.setattr(mod, "conv_s8", _conv_s8_nchw)
+    old = net.program._run(x)
+    torch.testing.assert_close(y, old, rtol=0, atol=0)
+
+
 QADD_CASES = {
     "codes_same_scale": ((0.05, 0.05, 0.05), ("i8", "i8")),
     "codes_rescaled": ((0.05, 0.03, 0.07), ("i8", "i8")),
