@@ -427,6 +427,9 @@ def _conv2d(x, K, B=None, group=1, strides=(1, 1), dilations=(1, 1),
         if route is None:
             route = conv_route(tuple(x.shape), x.dtype, K, group, strides,
                                dilations, pads)
+        rec = _prof.RECORDING
+        if rec is not None:     # where the list runs on the host, not a replay
+            rec.count("conv.route." + route)
         if route == "s8":                  # int8 codes, no quantize pass
             return _conv_w8a8(x, K, B, strides, dilations, pads,
                               pre_quantized=True,
