@@ -1,5 +1,6 @@
 """Native host-side kernels (C++ through ctypes): greedy NMS and the YOLO
-score filter, a copy of ``planer_tpu/native``.
+score filter, a copy of ``planer_tpu/native``, and the staging copy of a
+program's host inputs into its pinned buffers (``stage_copy``).
 
 ``nms.cpp`` compiles with ``g++`` on first use into the port's build
 directory (``build/planer_tpu_torch`` at the repository root, or
@@ -22,7 +23,8 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["nms", "score_filter", "score_filter_numpy", "load", "available"]
+__all__ = ["nms", "score_filter", "score_filter_numpy", "stage_copy", "load",
+           "available"]
 
 SRC = Path(__file__).resolve().with_name("nms.cpp")
 CXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
@@ -70,6 +72,9 @@ def load() -> ctypes.CDLL:
         lib.planer_score_filter.argtypes = [
             fp, ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ip,
             ip, fp]
+        lib.planer_stage_copy.restype = None
+        lib.planer_stage_copy.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_int64]
         _lib = lib
     return _lib
 
@@ -132,3 +137,18 @@ def score_filter_numpy(dec: np.ndarray, conf_thresh: float):
     cls_sc = scores.max(1)
     m = cls_sc >= conf_thresh
     return np.nonzero(m)[0], cls_id[m], cls_sc[m]
+
+
+def stage_copy(dst, src):
+    """Copy the host tensor ``src`` into ``dst``, a contiguous host tensor
+    of its dtype and shape (a pinned staging buffer), with non-temporal
+    stores; a non-contiguous ``src`` is copied by torch."""
+    if dst.shape != src.shape or dst.dtype != src.dtype \
+            or not (dst.is_cpu and src.is_cpu and dst.is_contiguous()):
+        raise ValueError(f"stage_copy: {src.dtype}{list(src.shape)} on "
+                         f"{src.device} into {dst.dtype}{list(dst.shape)} "
+                         f"on {dst.device}")
+    if not src.is_contiguous():
+        dst.copy_(src)
+        return
+    load().planer_stage_copy(dst.data_ptr(), src.data_ptr(), src.nbytes)

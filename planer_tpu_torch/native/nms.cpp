@@ -1,5 +1,6 @@
 // Native host-side kernels for the serving path: a copy of
-// planer_tpu/native/nms.cpp.
+// planer_tpu/native/nms.cpp, and the staging copy of a program's host
+// inputs (planer_stage_copy, below).
 //
 // The card owns the dense compute; these are the *host* hot loops that sit
 // between device outputs and the client: greedy NMS over decoded detection
@@ -12,10 +13,14 @@
 // Loaded via ctypes (planer_tpu_torch.native); no fallback.
 
 #include <cstdint>
+#include <cstring>
 #include <algorithm>
 #include <numeric>
 #include <vector>
 #include <cmath>
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
 
 extern "C" {
 
@@ -87,6 +92,35 @@ int64_t planer_score_filter(const float* dec, int64_t n, int64_t c,
         }
     }
     return m;
+}
+
+
+// n bytes from src into dst, the pinned buffer a program stages a host
+// input through (runtime/program.py).  The card's copy engine is the only
+// reader of dst, so its lines are written around the cache (non-temporal
+// stores, fenced before the copy is enqueued): no line is read for
+// ownership first.  The source is read 1 KB ahead.
+void planer_stage_copy(void* dst, const void* src, int64_t n) {
+    char* d = static_cast<char*>(dst);
+    const char* s = static_cast<const char*>(src);
+    int64_t i = 0;
+#if defined(__SSE2__)
+    i = std::min<int64_t>(n, -reinterpret_cast<intptr_t>(d) & 63);
+    std::memcpy(d, s, i);
+    for (; i + 64 <= n; i += 64) {
+        if (i + 1024 < n) __builtin_prefetch(s + i + 1024);
+        const __m128i* from = reinterpret_cast<const __m128i*>(s + i);
+        __m128i* to = reinterpret_cast<__m128i*>(d + i);
+        __m128i a = _mm_loadu_si128(from), b = _mm_loadu_si128(from + 1);
+        __m128i c = _mm_loadu_si128(from + 2), e = _mm_loadu_si128(from + 3);
+        _mm_stream_si128(to, a);
+        _mm_stream_si128(to + 1, b);
+        _mm_stream_si128(to + 2, c);
+        _mm_stream_si128(to + 3, e);
+    }
+    _mm_sfence();
+#endif
+    std::memcpy(d + i, s + i, n - i);
 }
 
 }  // extern "C"

@@ -14,7 +14,8 @@ port's counterpart of ``planer_tpu/runtime/profiler.py``.
     ``.copy_out``, ``.finish``, ``.eager``, ``.compile`` > ``.capture``),
     stamped with ``time.time_ns()`` (the clock torch.profiler's kineto
     events and CUPTI's device timestamps are on), and counts bytes copied
-    in and out, replays, eager runs, compiles and captures.  Off, a call
+    in and out, replays (and those whose inputs went through the entry's
+    pinned buffers), eager runs, compiles and captures.  Off, a call
     reads one module flag (``RECORDING``) and no clock;
   * ``trace`` — a ``torch.profiler`` context that also records spans.
     With ``layers=True`` the program runs its compiled entry's list

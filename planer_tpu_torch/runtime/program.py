@@ -35,8 +35,15 @@ The program keeps the tracer's decisions and its compile step:
    program), the counterpart of the command buffers XLA runs a compiled
    program as on a GPU.  Each later call copies its inputs into the
    graph's static inputs, replays it and returns a fresh device copy of
-   each output; the kernel modules' ``LAUNCHES`` and ``FALLOFF`` get the
-   delta the capture recorded, so they keep counting what the card ran.  A
+   each output.  An input on the card is copied (and cast) into a buffer
+   in the graph's dtype; an input in host memory is copied as it is into
+   a pinned buffer of the entry (``native.stage_copy``: non-temporal
+   stores, as only the copy engine reads it), from there by an
+   asynchronous copy into a device buffer in its own dtype, and the graph
+   casts it on the card (a CUDA event recorded after that copy keeps the
+   next call from writing the pinned buffer before the copy has read
+   it).  The kernel modules' ``LAUNCHES`` and ``FALLOFF`` get the delta
+   the capture recorded, so they keep counting what the card ran.  A
    capture that fails raises with the layer it reached; nothing runs
    eagerly in its place.  The first call at a key answers from its warm
    run.  A program on the CPU, and a ``parallel`` program over distinct
@@ -59,10 +66,12 @@ key, the lookup), then on a replay ``program.copy_in``,
 ``_compile`` and ``_capture`` are the spans ``program.compile`` and
 ``program.capture``.  It counts the caller's input bytes copied in by
 where they live (``in_bytes.pageable``, ``.pinned``, ``.device``),
-``replays``, ``eager_runs``, ``compiles`` and ``captures``.  Off, a call
-reads the flag and no clock.  ``lowered_text`` is the text of the entry at a
-signature; ``cost_analysis`` counts the work of the graph at given input
-shapes, the counterpart of XLA's cost analysis of the compiled program.
+the replays whose inputs went through the pinned buffers
+(``copy_in.staged``), ``replays``, ``eager_runs``, ``compiles`` and
+``captures``.  Off, a call reads the flag and no clock.  ``lowered_text``
+is the text of the entry at a signature; ``cost_analysis`` counts the work
+of the graph at given input shapes, the counterpart of XLA's cost analysis
+of the compiled program.
 
 The compute-dtype policy is the tracer's: inputs narrow at the boundary
 as ``jnp.asarray`` narrows them with 64-bit mode off (float64 to float32,
@@ -88,6 +97,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from .. import native as _native
 from ..device import float32_exact, narrow_64bit, resolve_device
 from ..ir import Graph
 from ..ops import modes
@@ -344,7 +354,11 @@ class _Step:
 class _Entry:
     """The compiled program at one key: the folded statics, the resolved
     list, the names the tail and the outputs read from the prefix, and on
-    CUDA the captured graph with its static buffers."""
+    CUDA the captured graph with its static buffers: per input the device
+    buffer the graph reads (``static_in``) and, for an input in host
+    memory, the pinned buffer it is staged through (``staging``, else
+    None), with the event recorded after the copies out of them
+    (``staged``, None where no input is staged)."""
 
     key: tuple
     steps: list
@@ -354,6 +368,8 @@ class _Entry:
     lines: list
     graph: Any = None
     static_in: list = dataclasses.field(default_factory=list)
+    staging: list = dataclasses.field(default_factory=list)
+    staged: Any = None
     static_out: dict = dataclasses.field(default_factory=dict)
     delta: list = dataclasses.field(default_factory=list)
     kernel_nodes: int | None = None
@@ -390,6 +406,7 @@ class Program:
         self._lock = threading.RLock()
         self._pool = None              # the graphs' memory pool
         self._side = None              # the warm-run and capture stream
+        self._streams: dict = {}       # (card, raw handle) -> torch Stream
 
         name_to_w = dict(zip(graph.init_names(), weights))
         self._senv0 = {"None": None, **name_to_w}
@@ -609,6 +626,17 @@ class Program:
         """Whether the entries run as CUDA graphs: on the card."""
         return self.device.type == "cuda"
 
+    def _current_stream(self, index: int):
+        """The current stream of card ``index`` (the one a copy and a replay
+        are enqueued on), kept per raw handle: ``torch.cuda.current_stream``
+        costs 10-20 us a call on the H100's host, the handle's lookup a
+        fraction of that."""
+        key = (index, torch._C._cuda_getCurrentRawStream(index))
+        stream = self._streams.get(key)
+        if stream is None:
+            stream = self._streams[key] = torch.cuda.current_stream(index)
+        return stream
+
     def _stream(self):
         if self._side is None:
             self._side = torch.cuda.Stream(self.device)
@@ -657,11 +685,19 @@ class Program:
     def _capture(self, entry, inputs):
         """Capture the entry's list into a CUDA graph with static input
         and output buffers; record the kernel counters' delta and leave
-        the counters as they were (a capture runs nothing)."""
+        the counters as they were (a capture runs nothing).  A host input's
+        buffer keeps the caller's dtype and the graph casts it first."""
         dev = self.device
+        entry.staging = [
+            torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            if x.device.type == "cpu" else None for x in inputs]
         entry.static_in = [
-            torch.empty_like(self._cast_graph_in(_to_device(x, dev)))
-            for x in inputs]
+            torch.empty(x.shape, dtype=x.dtype, device=dev) if pin is not None
+            else torch.empty_like(self._cast_graph_in(_to_device(x, dev)))
+            for x, pin in zip(inputs, entry.staging)]
+        if any(pin is not None for pin in entry.staging):
+            entry.staged = torch.cuda.Event()
+            _native.load()                 # the staging copy, built once
         counters = _counters()
         before = [collections.Counter(c) for c in counters]
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -671,8 +707,9 @@ class Program:
             with torch.cuda.graph(graph, pool=self._pool,
                                   stream=self._stream(),
                                   capture_error_mode="thread_local"):
-                env = {n: self._bind_input(x) for n, x in
-                       zip(self.graph.inputs, entry.static_in)}
+                # (no-op on a buffer already in the graph's dtype)
+                env = {n: self._bind_input(self._cast_graph_in(x)) for n, x
+                       in zip(self.graph.inputs, entry.static_in)}
                 self._run_steps(entry, env, where=where)
                 where[0] = "(outputs)"
                 entry.static_out = {n: self._cast_out(self._whole(env[n]))
@@ -728,8 +765,21 @@ class Program:
                     self._capture(entry, inputs)
                     if rec is not None:
                         t = time.time_ns()
-                for buf, x in zip(entry.static_in, inputs):
-                    buf.copy_(x)
+                staged = entry.staged
+                if staged is not None:
+                    # the last call's copies out of the pinned buffers have
+                    # run (in a closed loop it has long fired)
+                    staged.synchronize()
+                for pin, buf, x in zip(entry.staging, entry.static_in,
+                                       inputs):
+                    if pin is None:
+                        buf.copy_(x)
+                    else:
+                        _native.stage_copy(pin, x)
+                        buf.copy_(pin, non_blocking=True)
+                if staged is not None:
+                    staged.record(self._current_stream(
+                        entry.static_in[0].get_device()))
                 if rec is not None:
                     t2 = time.time_ns()
                 entry.graph.replay()
@@ -739,6 +789,8 @@ class Program:
                     rec.step(call, "program.replay", t2, t3)
                     for x in inputs:
                         rec.count("in_bytes." + _prof.where(x), x.nbytes)
+                    if staged is not None:
+                        rec.count("copy_in.staged")
                     rec.count("replays")
                     t = time.time_ns()
                 env = {n: _fresh(v) for n, v in entry.static_out.items()}

@@ -549,3 +549,31 @@ def test_executor_timeit_matches_numpy_executor(capsys):
     assert sorted(ln.split()[0] for ln in out) == sorted(2 * list(jex.timer))
     ex.run(x)
     assert sorted(ex.timer) == sorted(jex.timer) and not ex.timed
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16, torch.int8])
+@pytest.mark.parametrize("shape", [(1, 3, 224, 224), (3, 7, 5), (13,), ()])
+def test_stage_copy_writes_the_callers_bytes(dtype, shape):
+    """``native.stage_copy``, the copy of a host input into its entry's
+    pinned buffer, writes the caller's bytes and nothing else, at any size
+    and at destinations off a 64-byte line (its non-temporal stores take
+    whole lines between a plain head and tail), from a contiguous or a
+    strided source; it refuses a buffer of another dtype or shape."""
+    from planer_tpu_torch import native
+    gen = torch.Generator().manual_seed(len(shape))
+    src = (50 * torch.randn(shape, generator=gen)).to(dtype)
+    n = src.numel()
+    for off in (0, 1, 17):
+        store = torch.zeros(off + n + 8, dtype=dtype)
+        dst = store[off:off + n].view(shape)
+        native.stage_copy(dst, src)
+        assert torch.equal(dst, src)
+        assert not store[:off].any() and not store[off + n:].any()
+    if src.ndim > 1:
+        strided = src.transpose(0, -1)
+        dst = torch.empty(strided.shape, dtype=dtype)
+        native.stage_copy(dst, strided)
+        assert torch.equal(dst, strided)
+    with pytest.raises(ValueError, match="stage_copy"):
+        native.stage_copy(torch.empty(shape, dtype=torch.float64), src)

@@ -217,7 +217,7 @@ def test_the_spans_of_a_replay_line_up_with_the_device(card):
         "program.replay", "program.copy_out", "program.finish",
         "net.to_numpy"]
     assert rec.counters == {"in_bytes.pageable": x.nbytes, "replays": 1,
-                            "out_bytes": y.nbytes}
+                            "copy_in.staged": 1, "out_bytes": y.nbytes}
     n = 50
     with profiler.trace(None, layers=False) as prof:
         w0 = time.time_ns()
@@ -229,3 +229,109 @@ def test_the_spans_of_a_replay_line_up_with_the_device(card):
     assert len(sw.shift) == n
     assert len(sw.htod) == n and None not in sw.htod, sw.htod
     assert len(sw.dtoh) == n and None not in sw.dtoh, sw.dtoh
+
+
+@pytest.fixture(scope="module")
+def main_path():
+    """The main path on the card: ResNet-18 at 224 (stage64 and the W8A8
+    chain), optimized, calibrated on one image, static INT8, bf16
+    compute."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA graph capture")
+    from planer_tpu_torch.models import eval as ev
+    from planer_tpu_torch.quant import calibrate_act_scales
+    net = tm.resnet18(num_classes=8, device="cuda")
+    net.optimize()
+    calibrate_act_scales(net, ev.synthetic_images(1, (3, 224, 224), seed=3,
+                                                  batch=1))
+    net.quantize("int8", activations="static")
+    net.astype_compute("bfloat16")
+    return net
+
+
+def _image(batch, dtype, seed):
+    x = _x((batch, 3, 224, 224), seed)
+    if dtype == "int8":
+        return np.clip(np.rint(40 * x), -128, 127).astype(np.int8)
+    return x.astype(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "int8"])
+def test_a_host_input_is_staged_and_cast_inside_the_graph(main_path, batch,
+                                                          dtype):
+    """A host input's entry stages it through a pinned buffer in its own
+    dtype (float64 narrowed to float32 first) and casts it inside the
+    graph (int8 graph inputs lifted to bf16); its replay equals bit for
+    bit the same input handed over on the card, whose entry copies it in
+    as before, and the eager loop."""
+    prog = main_path.program
+    x = _image(batch, dtype, 20 + batch)
+    xd = torch.from_numpy(x).cuda()
+    prog(x)
+    prog(xd)
+    host, card = prog(x), prog(xd)
+    entry = prog._entry(x)
+    kept = torch.int8 if dtype == "int8" else torch.float32
+    assert entry.staged is not None and entry.staging[0].is_pinned()
+    assert entry.staging[0].dtype == entry.static_in[0].dtype == kept
+    assert prog._entry(xd).staged is None and prog._entry(xd).staging == [None]
+    assert prog._entry(xd).static_in[0].dtype == torch.bfloat16
+    torch.testing.assert_close(host, card, rtol=0, atol=0)
+    torch.testing.assert_close(host, prog._run(x), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_back_to_back_host_calls_answer_their_own_inputs(main_path):
+    """Two ``Net.forward`` calls with different host inputs and no
+    synchronize between them, queued behind a long kernel: the second
+    waits for the first one's copy out of the pinned buffer before it
+    writes the buffer, so each answer is its own input's."""
+    net = main_path
+    xa, xb = _image(1, "float32", 31), _image(1, "float32", 32)
+    want = [net.forward(torch.from_numpy(v).cuda()) for v in (xa, xb)]
+    net.forward(xa)
+    net.forward(xa)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)          # tens of ms ahead of both copies
+    ya = net.forward(xa)
+    yb = net.forward(xb)
+    torch.cuda.synchronize()
+    assert not torch.equal(want[0], want[1])
+    assert torch.equal(ya, want[0]) and torch.equal(yb, want[1])
+    # a caller's own stream: the copy, its event and the replay go there
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(100_000_000)
+        yb = net.forward(xb)
+        ya = net.forward(xa)
+        assert net.program._current_stream(0) == side
+    side.synchronize()
+    assert torch.equal(ya, want[0]) and torch.equal(yb, want[1])
+    assert net.program._current_stream(0) == torch.cuda.current_stream(0)
+
+
+@pytest.mark.cuda
+def test_copy_in_staged_counts_the_replays_of_host_inputs(main_path):
+    """``copy_in.staged`` counts each replayed call whose input went
+    through the pinned buffer (pageable or pinned host memory), none with
+    an input on the card and none for a first call, which answers from its
+    walk."""
+    from planer_tpu_torch.runtime import profiler
+    prog = main_path.program
+    x = _image(1, "float32", 41)
+    xd, xp = torch.from_numpy(x).cuda(), torch.from_numpy(x).pin_memory()
+    prog(x)
+    prog(xd)
+    with profiler.record() as rec:
+        for v in (x, x, xp, xd, xd):
+            prog(v)
+        prog(_image(2, "float32", 42))
+    n = x.nbytes
+    # (the compile's walk also counts its convs' routes, ``conv*``)
+    counters = {k: v for k, v in rec.counters.items()
+                if not k.startswith("conv")}
+    assert counters == {"in_bytes.pageable": 2 * n, "in_bytes.pinned": n,
+                            "in_bytes.device": 2 * n, "copy_in.staged": 3,
+                            "replays": 5, "compiles": 1, "captures": 1}

@@ -186,33 +186,53 @@ def test_a_replay_records_its_copies(net, monkeypatch):
     fresh(x)
     entry = prog._entry(x)
 
+    events = []
+
     class Graph:
         def replay(self):
-            env = {n: t.clone() for n, t in
+            events.append("replay")
+            env = {n: prog._cast_graph_in(t.clone()) for n, t in
                    zip(prog.graph.inputs, entry.static_in)}
             env = prog._run_steps(entry, env)
             entry.static_out = {n: prog._cast_out(env[n])
                                 for n in entry.needs}
 
+    class Event:
+        def synchronize(self):
+            events.append("wait")
+
+        def record(self, stream):
+            events.append(("record", stream))
+
+    # a host input's buffers, as ``_capture`` makes them: the caller's
+    # dtype in the staging buffer and in the graph's input
     @profiler.spanned("program.capture", "captures")
     def capture(entry, inputs):
-        entry.static_in = [torch.empty_like(prog._cast_graph_in(t))
-                           for t in inputs]
+        entry.staging = [torch.empty_like(t) for t in inputs]
+        entry.static_in = [torch.empty_like(t) for t in inputs]
+        entry.staged = Event()
         entry.graph = Graph()
 
     monkeypatch.setattr(prog, "_captures", lambda: True)
     monkeypatch.setattr(prog, "_capture", capture)
+    monkeypatch.setattr(prog, "_current_stream", lambda i: ("stream", i))
     with profiler.record() as first:
         fresh(x)
     assert [s.name for s in first.spans] == (
         REPLAY[:3] + ["program.capture"] + REPLAY[3:])
     assert first.counters["captures"] == 1
+    events.clear()
     with profiler.record() as rec:
         y = fresh(x)
     assert [s.name for s in rec.spans] == REPLAY
     assert rec.counters == {"in_bytes.pageable": x.nbytes, "replays": 1,
-                            "out_bytes": y.nbytes}
+                            "copy_in.staged": 1, "out_bytes": y.nbytes}
     np.testing.assert_array_equal(y, want.numpy())
+    # the staged copy: wait for the last copy out, the caller's bytes as
+    # they are, then the copy recorded on the program's stream
+    assert events == ["wait", ("record", ("stream", -1)), "replay"]
+    np.testing.assert_array_equal(entry.staging[0].numpy(), x)
+    np.testing.assert_array_equal(entry.static_in[0].numpy(), x)
     # a caller's tensor on the host is pageable too, counted at its bytes
     with profiler.record() as rec:
         fresh.program(torch.from_numpy(x).double())
