@@ -45,6 +45,7 @@ __all__ = ["dense_q", "matmul_q", "tile_plan", "kernel_plan", "device_plan",
 # kernel launches ("dense_q": int8 weights, "dense_q[fp8]": e4m3 weights);
 # plain-version runs are not counted
 LAUNCHES = collections.Counter()
+KERNEL_NAMES = (("dense_q", "dense_q_kernel"),)
 
 _VMEM_BUDGET = 12 * 1024 * 1024   # the reference's, part of its gate
 

@@ -77,17 +77,22 @@ def _inputs(form, kd, n, m, rng):
     return x, q, s, b
 
 
-def _build_cuts(out_dir: Path):
-    src = (build.SRC_DIR / "gemm.cu").read_text()
+def build_cuts(source: str, cuts: dict, argtypes: dict) -> dict:
+    """{cut name: library}: ``csrc/<source>.cu`` built once per entry of
+    ``cuts`` (name -> [(text, its replacement everywhere)]) into the build
+    directory, the nvcc processes in parallel; each library's functions
+    take ``argtypes`` ({name: argument types}) and return an int."""
+    out_dir = build._build_dir()
+    src = (build.SRC_DIR / f"{source}.cu").read_text()
     procs = {}
-    for name, cuts in CUTS.items():
+    for name, pairs in cuts.items():
         text = src
-        for a, b in cuts:
+        for a, b in pairs:
             if a not in text:
                 raise SystemExit(f"cut {name!r}: the kernel source changed")
             text = text.replace(a, b)
-        tag = name.replace(" ", "_").replace(",", "")
-        path = out_dir / f"gemm_{tag}.cu"
+        tag = f"{source}_" + name.replace(" ", "_").replace(",", "")
+        path = out_dir / f"{tag}.cu"
         path.write_text(text)
         so = out_dir / f"lib{tag}.so"
         procs[name] = (subprocess.Popen(
@@ -98,16 +103,16 @@ def _build_cuts(out_dir: Path):
         log = p.communicate()[0]
         if p.returncode:
             raise SystemExit(f"nvcc failed for {name!r}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        lib.dense_q.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        lib.dense_q.restype = ctypes.c_int
-        libs[name] = lib
+        lib = libs[name] = ctypes.CDLL(str(so))
+        for fn, types in argtypes.items():
+            getattr(lib, fn).argtypes = types
+            getattr(lib, fn).restype = ctypes.c_int
     return libs
 
 
 def study():
-    libs = _build_cuts(build._build_dir())
+    libs = build_cuts("gemm", CUTS, {"dense_q": [ctypes.c_void_p] * 5
+                                     + [ctypes.c_int] * 5 + [ctypes.c_void_p]})
     rng = np.random.default_rng(0)
     total = {}
     for form, code in (("int8", 0), ("fp8", 1)):
@@ -149,24 +154,23 @@ def time_checkout():
               f"forward: {tot:.4f} ms (device)", flush=True)
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+def main(script=__file__, doc=__doc__, what="dense_q",
+         time_checkout=time_checkout, study=study):
+    """This study's command line, or another ``script``'s."""
+    ap = argparse.ArgumentParser(description=doc.split("\n\n")[0])
     ap.add_argument("--other", metavar="DIR",
-                    help="also time the dense_q of the checkout at DIR")
-    ap.add_argument("--checkout", action="store_true", help=argparse.SUPPRESS)
+                    help=f"also time the {what} of the checkout at DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        sys.exit("gemm_study: no CUDA device")
+        sys.exit(f"{Path(script).stem}: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    if args.checkout:
-        time_checkout()
-        return
-    if args.other:       # this file, run against the other checkout's port
+    if args.other:       # the script's timing on the other checkout's port
         root = str(Path(args.other).resolve())
-        subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--checkout"], cwd=root, check=True,
+        subprocess.run([sys.executable, "-c", "import runpy, sys; runpy."
+                        "run_path(sys.argv[1])['time_checkout']()",
+                        str(Path(script).resolve())], cwd=root, check=True,
                        env={**os.environ, "PYTHONPATH": root})
     time_checkout()
     study()

@@ -73,10 +73,14 @@ FALLOFF = collections.Counter()
 # "basic_block_last" (bf16 out), with "[trunc]" for the trunc requants;
 # plain-version runs are not counted
 LAUNCHES = collections.Counter()
+KERNEL_NAMES = (("stem_pool_requant", "stem_kernel"),
+                ("basic_block", "block_kernel"))
+FALLOFF_PREFIX = ""              # served as the bare reasons (stats())
 
 # the reference's A/B flags (module doc), with its defaults
 SPLIT = True
 REQUANT = "fxp"
+SWITCHES = ("SPLIT", "REQUANT")
 
 _FXP_MMAX = 115
 # pool border sentinel: far below any s8 x s8 K <= 576 accumulator, exact

@@ -64,6 +64,7 @@ FALLOFF = collections.Counter()
 # stage geometry (see _Plan.tag) they ran for; runs of the plain version are
 # not counted
 LAUNCHES = collections.Counter()
+KERNEL_NAMES = (("stagen_block", "block_kernel"),)
 
 # the reference's lane-layout limits, which decide where it fuses
 HALO = 128

@@ -19,18 +19,13 @@ blocks fit, each checked bit for bit against the plain version first.
 """
 from __future__ import annotations
 
-import argparse
 import contextlib
-import ctypes
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from planer_tpu_torch.ops.kernels import build
+from planer_tpu_torch.ops.kernels import gemm_study
 from planer_tpu_torch.ops.kernels import stagen as sg
 from planer_tpu_torch.ops.kernels.gemm_study import graph_ms
 from planer_tpu_torch.ops.qtypes import QTensor
@@ -85,35 +80,6 @@ CUTS = {
 }
 
 
-def _build_cuts(out_dir: Path):
-    src = (build.SRC_DIR / "stagen.cu").read_text()
-    procs = {}
-    for name, cuts in CUTS.items():
-        text = src
-        for a, b in cuts:
-            if a not in text:
-                raise SystemExit(f"cut {name!r}: the kernel source changed")
-            text = text.replace(a, b)       # every occurrence
-        tag = name.replace(" ", "_")
-        path = out_dir / f"stagen_{tag}.cu"
-        path.write_text(text)
-        so = out_dir / f"libstagen_{tag}.so"
-        procs[name] = (subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(path)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for name, (p, so) in procs.items():
-        log = p.communicate()[0]
-        if p.returncode:
-            raise SystemExit(f"nvcc failed for {name!r}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        for fn in ("stagen_block", "stagen_block_smem"):
-            getattr(lib, fn).argtypes = getattr(sg._lib(), fn).argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
 def random_stage(kind, cin, cm, co, nb, st, side, n, seed=0):
     """A stage's input and int8 weights as a calibrated net would hand
     them (each conv's act scale its input's), on the card."""
@@ -165,7 +131,9 @@ def _using(lib):
 
 
 def study():
-    libs = _build_cuts(build._build_dir())
+    libs = gemm_study.build_cuts("stagen", CUTS, {
+        fn: getattr(sg._lib(), fn).argtypes
+        for fn in ("stagen_block", "stagen_block_smem")})
     for name, *shape in STAGES:
         x, w, blocks = random_stage(*shape, n=64)
         plan = sg._fold(w, blocks, x.device)
@@ -281,28 +249,5 @@ def time_checkout():
               flush=True)
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--other", metavar="DIR",
-                    help="also time the stagen_stage of the checkout at DIR")
-    ap.add_argument("--checkout", action="store_true", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("stagen_study: no CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
-    if args.checkout:
-        time_checkout()
-        return
-    if args.other:       # this file, run against the other checkout's port
-        root = str(Path(args.other).resolve())
-        subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--checkout"], cwd=root, check=True,
-                       env={**os.environ, "PYTHONPATH": root})
-    time_checkout()
-    study()
-
-
 if __name__ == "__main__":
-    main()
+    gemm_study.main(__file__, __doc__, "stagen_stage", time_checkout, study)

@@ -54,6 +54,7 @@ import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
 from ..runtime import profiler as _prof
+from . import kernels as _kernels
 from . import modes as _modes
 from . import resize as _rs
 from .padding import resolve_conv_pads, resolve_pool_pads
@@ -87,6 +88,14 @@ _PALLAS_CONV1X1 = False
 # quantized 3x3 conv with at most 64 outputs and C < 128 takes dequant +
 # float conv in place of the stacked s8 form
 _STACK_CONV = True
+
+
+def switches() -> tuple:
+    """The flags the ops and the hand kernels read at call time: part of
+    every program entry's key.  (Not TF32: a program call holds it off.)"""
+    return (_PALLAS_CONV1X1, _STACK_CONV, *_kernels.switches(),
+            _modes.get_erf_mode())
+
 
 # the logical batch of ``logical_batch`` (None: the tensors' own)
 _LOGICAL_BATCH: contextvars.ContextVar = contextvars.ContextVar(

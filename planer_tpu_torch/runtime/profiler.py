@@ -53,6 +53,9 @@ CHIP_SPECS = {
 # the active Recording while ``record`` is entered, else None: read once
 # at the top of every ``Net.__call__`` and ``Program.__call__``
 RECORDING = None
+# whether a ``trace(layers=True)`` is active: read once per
+# ``Program.__call__``, which then runs its entry's list eagerly
+TRACING = False
 # spans a recording keeps before it drops (and counts) the rest
 SPAN_CAP = 1 << 20
 # the call path's outermost span while no recording is active: entered, it
@@ -299,19 +302,19 @@ def trace(log_dir: str | None, layers: bool = True):
     and counters added on the file's own time base."""
     from torch.profiler import ProfilerActivity, profile
 
-    from . import program as _program
+    global TRACING
     acts = [ProfilerActivity.CPU] if layers else []
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
-    prev = _program.TRACING
+    prev = TRACING
     with record() as rec, profile(
             activities=acts or [ProfilerActivity.CPU]) as prof:
         prof.recording = rec
-        _program.TRACING = layers
+        TRACING = layers
         try:
             yield prof
         finally:
-            _program.TRACING = prev
+            TRACING = prev
     if log_dir is None:
         return
     os.makedirs(log_dir, exist_ok=True)

@@ -18,16 +18,15 @@ The program keeps the tracer's decisions and its compile step:
 3. **Compile, per input signature** (``_entry``, ``_compile``): the key
    holds each input's (shape, dtype, device), a snapshot of
    ``op_overrides``' content and the call-time switches the ops read
-   (``_switches``), so a reassigned or updated overrides dict, or a flipped
-   module flag, never reuses an entry.  The first call at a key walks the
-   flow once: the shape and static records run on the host and their
-   values are kept (the tracer's ``statics``), and every dynamic
+   (``torch_ops.switches``), so a reassigned or updated overrides dict, or
+   a flipped module flag, never reuses an entry.  The first call at a key
+   walks the flow once: the shape and static records run on the host and
+   their values are kept (the tracer's ``statics``), and every dynamic
    application is resolved once — its arguments (weights, static values
    moved to the device, and as host values the operands an op reads on
    the host, the registry's ``host_args``), its kwargs with the overrides
    and the compute dtype, its ``cache`` — into a straight-line list of
-   calls.
-   Later calls run that list and fold nothing.
+   calls.  Later calls run that list and fold nothing.
 4. **Run on CUDA**: the first walk is the warm run, on the program's side
    stream and outside any capture (kernels build, their tables fold, cached
    constants fill); the list up to the cut is then captured once into a
@@ -42,19 +41,20 @@ The program keeps the tracer's decisions and its compile step:
    asynchronous copy into a device buffer in its own dtype, and the graph
    casts it on the card (a CUDA event recorded after that copy keeps the
    next call from writing the pinned buffer before the copy has read
-   it).  The kernel modules' ``LAUNCHES`` and ``FALLOFF`` get the delta
-   the capture recorded, so they keep counting what the card ran.  A
-   capture that fails raises with the layer it reached; nothing runs
-   eagerly in its place.  The first call at a key answers from its warm
-   run.  A program on the CPU, and a ``parallel`` program over distinct
-   cards, run the resolved list uncaptured; a ``parallel`` program whose
-   mesh repeats one card captures like any other.
+   it).  Every kernel module's ``LAUNCHES`` and ``FALLOFF`` (the inventory
+   in ``ops/kernels``) gets the delta the capture recorded, so they keep
+   counting what the card ran.  A capture that fails raises with the layer
+   it reached; nothing runs eagerly in its place.  The first call at a key
+   answers from its warm run.  A program on the CPU, and a ``parallel``
+   program over distinct cards, run the resolved list uncaptured; a
+   ``parallel`` program whose mesh repeats one card captures like any
+   other.
 
 ``_run`` is the eager loop the entry is resolved from (every record folded
 again at every call): the reference a caller holds the compiled entry
-against.  While ``profiler.trace`` is active with its layers (the module
-flag ``TRACING``, read once per call), the program runs the entry's list
-eagerly, each dynamic application inside
+against.  While ``profiler.trace`` is active with its layers
+(``profiler.TRACING``, read once per call), the program runs the entry's
+list eagerly, each dynamic application inside
 ``torch.profiler.record_function(<IR layer name>)``, the counterpart of
 the tracer's ``jax.named_scope``; outside such a trace no scope is
 entered.  While ``profiler.record`` is active (``profiler.RECORDING``, read
@@ -100,7 +100,7 @@ import torch
 from .. import native as _native
 from ..device import float32_exact, narrow_64bit, resolve_device
 from ..ir import Graph
-from ..ops import modes
+from ..ops import kernels as _kernels
 from ..ops import torch_ops as tops
 from ..ops.qtypes import QTensor
 from ..ops.torch_ops import to_dtype
@@ -109,9 +109,6 @@ from . import profiler as _prof
 from .executor import Executor
 
 __all__ = ["Program", "analyze", "GraphPlan"]
-
-# set by profiler.trace while a torch.profiler trace is active
-TRACING = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,45 +242,6 @@ def _freeze(v):
     return v
 
 
-def _switches() -> tuple:
-    """The module flags the ops read at call time (ops/torch_ops.py,
-    ops/kernels/stage64.py, ops/modes.py): part of every entry's key, as
-    the ops would take another path under others.  (TF32 is not one: a
-    call holds it off.)"""
-    from ..ops.kernels import stage64
-    return (tops._PALLAS_CONV1X1, tops._STACK_CONV, bool(stage64.SPLIT),
-            stage64.REQUANT, modes.get_erf_mode())
-
-
-def _counters() -> list:
-    """The kernel modules' launch and fall-off counters."""
-    from ..ops.kernels import gemm, stage64, stagen
-    return [stage64.LAUNCHES, stage64.FALLOFF, stagen.LAUNCHES,
-            stagen.FALLOFF, gemm.LAUNCHES]
-
-
-def _delta(after, before) -> collections.Counter:
-    d = collections.Counter(after)
-    d.subtract(before)
-    return collections.Counter({k: v for k, v in d.items() if v})
-
-
-# LAUNCHES key prefix -> the kernel it launches (csrc/*.cu)
-_KERNELS = (("stem_pool_requant", "stem_kernel"),
-            ("basic_block", "block_kernel"),
-            ("stagen_block", "block_kernel"),
-            ("dense_q", "dense_q_kernel"))
-
-
-def _kernel_names(launched) -> dict:
-    """{kernel name: launches} of a LAUNCHES delta."""
-    out: dict[str, int] = {}
-    for key, n in launched.items():
-        name = next(k for p, k in _KERNELS if key.startswith(p))
-        out[name] = out.get(name, 0) + n
-    return out
-
-
 def _sig(v) -> str:
     """A value's dtype and shape for ``lowered_text``."""
     if isinstance(v, tuple):
@@ -358,7 +316,8 @@ class _Entry:
     buffer the graph reads (``static_in``) and, for an input in host
     memory, the pinned buffer it is staged through (``staging``, else
     None), with the event recorded after the copies out of them
-    (``staged``, None where no input is staged)."""
+    (``staged``, None where no input is staged), and the (kernel counter,
+    launches or fall-offs) pairs a replay adds (``delta``)."""
 
     key: tuple
     steps: list
@@ -529,6 +488,8 @@ class Program:
         envs."""
         graph = self.graph
         overrides = self._overrides()
+        if steps is not None:
+            counters = _kernels.counters()
         env: dict[str, Any] = self._bind(inputs)    # dynamic values (device)
         senv: dict[str, Any] = dict(self._senv0)    # static values (host)
         for ri, rec in enumerate(self.plan.records):
@@ -573,15 +534,16 @@ class Program:
                              [a if rec.arg_static[p] else _Ref(s)
                               for p, (s, a) in enumerate(zip(src, args))],
                              kw, edge, lname)
-                before = [collections.Counter(c) for c in _counters()]
+                before = {k: collections.Counter(c)
+                          for k, c in counters.items()}
             if scoped:
                 with torch.profiler.record_function(lname):
                     out = self._apply(ri, rec, layer, spec, args, kw)
             else:
                 out = self._apply(ri, rec, layer, spec, args, kw)
             if steps is not None:
-                step.text = self._line(step, args, out, [
-                    _delta(c, b) for c, b in zip(_counters(), before)])
+                step.text = self._line(step, args, out, {
+                    k: c - before[k] for k, c in counters.items()})
                 steps.append(step)
             _store(env, senv, edge, out)
         return env, senv
@@ -620,7 +582,7 @@ class Program:
     def _key(self, inputs) -> tuple:
         specs = tuple((tuple(x.shape), x.dtype, str(x.device))
                       for x in inputs)
-        return specs, _freeze(self.op_overrides), _switches()
+        return specs, _freeze(self.op_overrides), tops.switches()
 
     def _captures(self) -> bool:
         """Whether the entries run as CUDA graphs: on the card."""
@@ -698,8 +660,8 @@ class Program:
         if any(pin is not None for pin in entry.staging):
             entry.staged = torch.cuda.Event()
             _native.load()                 # the staging copy, built once
-        counters = _counters()
-        before = [collections.Counter(c) for c in counters]
+        counters = _kernels.counters()
+        before = {k: collections.Counter(c) for k, c in counters.items()}
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         where = ["(inputs)"]
         t0 = time.perf_counter()
@@ -719,10 +681,11 @@ class Program:
                 f"CUDA graph capture of {self.graph.inputs} at "
                 f"{entry.key[0]} failed at layer {where[0]}: {e}") from e
         finally:
-            entry.delta = [_delta(c, b) for c, b in zip(counters, before)]
-            for c, b in zip(counters, before):
+            entry.delta = [(c, d) for k, c in counters.items()
+                           if (d := c - before[k])]
+            for k, c in counters.items():
                 c.clear()
-                c.update(b)
+                c.update(before[k])
         entry.kernel_nodes = _kernel_nodes(graph)
         graph.instantiate()
         torch.cuda.synchronize(dev)
@@ -744,7 +707,7 @@ class Program:
             if rec is not None:
                 t = time.time_ns()
             inputs = self._inputs(inputs)
-            scoped = TRACING
+            scoped = _prof.TRACING
             with self._lock:
                 key = self._key(inputs)
                 entry = self._cache.get(key)
@@ -794,7 +757,7 @@ class Program:
                     rec.count("replays")
                     t = time.time_ns()
                 env = {n: _fresh(v) for n, v in entry.static_out.items()}
-                for c, d in zip(_counters(), entry.delta):
+                for c, d in entry.delta:
                     c.update(d)
                 if rec is not None:
                     t = rec.step(call, "program.copy_out", t)
@@ -843,12 +806,13 @@ class Program:
         CPU, or with ``plain``, their plain versions), the ``_int_mm``
         chain of an s8 conv, cuDNN, cuBLAS, or other ATen ops."""
         op, kw = step.layer.op, step.kw
-        kernels = _kernel_names(launched[0] + launched[2] + launched[4])
+        kernels = _kernels.kernel_names(launched)
         if kernels:
             return " + ".join(f"{k} x{n}" for k, n in kernels.items())
         cuda = self.device.type == "cuda"
         if op in ("stage64", "stagen"):
-            if kw.get("force_decomposed") or launched[1] or launched[3]:
+            if kw.get("force_decomposed") or any(
+                    d for (_, c), d in launched.items() if c == "FALLOFF"):
                 return "decomposed"
             cache = self._caches.get(step.ri, {})
             plan = next(iter(cache.values()), None)

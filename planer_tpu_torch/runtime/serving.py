@@ -30,6 +30,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..ops import kernels as _kernels
+
 __all__ = ["ServingEngine", "ServingStats"]
 
 
@@ -151,10 +153,7 @@ class ServingEngine:
         (the kernels' ``FALLOFF`` counters): a serve shape that drops the
         kernel is visible here."""
         s = self.stats_data.summary()
-        from ..ops.kernels import stage64 as _s64
-        from ..ops.kernels import stagen as _sn
-        falloff = dict(_s64.FALLOFF)
-        falloff.update({f"stagen_{k}": v for k, v in _sn.FALLOFF.items()})
+        falloff = _kernels.falloff()
         if falloff:
             s["fused_stage_falloff"] = falloff
         return s

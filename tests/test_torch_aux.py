@@ -21,7 +21,6 @@ import planer_tpu_torch as pt
 from planer_tpu_torch import Config, get_config, models, set_config
 from planer_tpu_torch.models import eval as ev
 from planer_tpu_torch.ops.kernels import stage64 as st
-from planer_tpu_torch.runtime import program as tprogram
 from planer_tpu_torch.runtime import profiler
 from planer_tpu_torch.utils import zoo
 from planer_tpu_torch.utils.plot import plot_net, to_dot
@@ -75,10 +74,10 @@ def test_trace_scopes_layer_names_only_while_tracing(tmp_path, monkeypatch):
                         lambda name: entered.append(name) or real(name))
     st.LAUNCHES.clear()
     net(_x())
-    assert entered == [] and not tprogram.TRACING
+    assert entered == [] and not profiler.TRACING
     with profiler.trace(str(tmp_path)) as prof:
         net(_x())
-    assert not tprogram.TRACING
+    assert not profiler.TRACING
     names = {e.name for e in prof.events()}
     assert {"stem", "layer2.0.conv1", "fc"} <= names
     assert "layer2.0.conv1" in entered

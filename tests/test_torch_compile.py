@@ -325,6 +325,95 @@ def test_lowered_text_of_a_dense_net():
         "float32[1, 4]" in txt
 
 
+# -------------------------------------------------- the kernels' inventory
+
+# every launch key the kernel modules emit, with the CUDA kernel it names
+LAUNCH_KEYS = [
+    ("stage64", "stem_pool_requant", "stem_kernel"),
+    ("stage64", "stem_pool_requant[bf16]", "stem_kernel"),
+    ("stage64", "stem_pool_requant[trunc]", "stem_kernel"),
+    ("stage64", "basic_block", "block_kernel"),
+    ("stage64", "basic_block_last", "block_kernel"),
+    ("stage64", "basic_block[trunc]", "block_kernel"),
+    ("stage64", "basic_block_last[trunc]", "block_kernel"),
+    ("stagen", "stagen_block:bottleneck/s2/256-128-512x4", "block_kernel"),
+    ("gemm", "dense_q", "dense_q_kernel"),
+    ("gemm", "dense_q[fp8]", "dense_q_kernel"),
+]
+
+
+@pytest.mark.parametrize("module,key,kernel", LAUNCH_KEYS)
+def test_the_inventory_holds_every_kernel_module_and_names_its_launches(
+        module, key, kernel):
+    """Every module under ops/kernels that defines ``LAUNCHES`` is in the
+    inventory once imported, with its ``FALLOFF`` where it has one; each
+    launch key names its CUDA kernel (a fall-off names none); and the
+    entries' switches are the op library's and stage64's, in their order."""
+    import collections
+    import importlib
+    import pkgutil
+
+    from planer_tpu_torch.ops import kernels, modes
+    found = []
+    for info in pkgutil.iter_modules(kernels.__path__):
+        mod = importlib.import_module(f"{kernels.__name__}.{info.name}")
+        if hasattr(mod, "LAUNCHES"):
+            found.append(info.name)
+            counted = kernels.counters()
+            assert counted[(info.name, "LAUNCHES")] is mod.LAUNCHES
+            assert counted.get((info.name, "FALLOFF")) is getattr(
+                mod, "FALLOFF", None)
+    assert module in found and set(found) <= set(kernels.modules())
+    delta = {(module, "LAUNCHES"): collections.Counter({key: 2}),
+             (module, "FALLOFF"): collections.Counter(shape=1)}
+    assert kernels.kernel_names(delta) == {kernel: 2}
+    assert tops.switches() == (tops._PALLAS_CONV1X1, tops._STACK_CONV,
+                               st.SPLIT, st.REQUANT, modes.get_erf_mode())
+
+
+def test_a_new_kernel_module_joins_the_inventory_with_no_runtime_edit(
+        monkeypatch):
+    """A stand-in kernel module, only put into ``sys.modules`` under the
+    package: its counters, its kernel names, its fall-offs in the serving
+    summary, its launches in ``lowered_text`` and its switch in the entry's
+    key."""
+    import collections
+    import sys
+    import types
+
+    from planer_tpu_torch.ops import kernels
+    mod = types.ModuleType(f"{kernels.__name__}.standin")
+    mod.LAUNCHES, mod.FALLOFF = collections.Counter(), collections.Counter()
+    mod.KERNEL_NAMES = (("standin_relu", "standin_kernel"),)
+    mod.MODE, mod.SWITCHES = "a", ("MODE",)
+    monkeypatch.setitem(sys.modules, mod.__name__, mod)
+    assert kernels.counters()[("standin", "LAUNCHES")] is mod.LAUNCHES
+    assert kernels.counters()[("standin", "FALLOFF")] is mod.FALLOFF
+    delta = {("standin", "LAUNCHES"): collections.Counter(standin_relu=3)}
+    assert kernels.kernel_names(delta) == {"standin_kernel": 3}
+    mod.FALLOFF["shape"] += 1
+    with ServingEngine(lambda x: x) as eng:
+        assert eng.stats()["fused_stage_falloff"]["standin_shape"] == 1
+
+    relu = registry.OPS["relu"]
+
+    def launching(*a, **k):
+        mod.LAUNCHES["standin_relu"] += 1
+        return relu.fn(*a, **k)
+    monkeypatch.setitem(registry.OPS, "relu", dataclasses.replace(
+        relu, fn=launching, oracle_fn=launching))
+    prog = Program(*_bias_relu(TBuilder), device="cpu")
+    x = _x((1, 3, 4, 4))
+    assert "relu [standin_kernel x1]" in prog.lowered_text(x)
+    prog(x)
+    assert len(prog._cache) == 1
+    mod.MODE = "b"
+    prog(x)
+    assert len(prog._cache) == 2 and mod.LAUNCHES["standin_relu"] == 3
+    monkeypatch.undo()
+    assert "standin" not in kernels.modules()
+
+
 # ---------------------------------------------------------- invalidation
 
 def test_invalidation_leaves_no_stale_entry():

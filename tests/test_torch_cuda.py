@@ -335,3 +335,31 @@ def test_copy_in_staged_counts_the_replays_of_host_inputs(main_path):
     assert counters == {"in_bytes.pageable": 2 * n, "in_bytes.pinned": n,
                             "in_bytes.device": 2 * n, "copy_in.staged": 3,
                             "replays": 5, "compiles": 1, "captures": 1}
+
+
+@pytest.mark.cuda
+def test_replays_add_the_captures_launches_to_every_kernel_module(main_path):
+    """After k replays of the main path, every loaded kernel module's
+    ``LAUNCHES`` (each module under ``ops.kernels`` that has one, the
+    benchmark's rule) has grown by exactly k times the capture's delta:
+    one stem and two block launches of stage64 a replay."""
+    import collections
+    import sys
+    prog = main_path.program
+    x = torch.from_numpy(_image(2, "float32", 51)).cuda()
+    prog(x)                                       # the compile and capture
+    captured = {id(c): d for c, d in prog._entry(x).delta}
+    launches = {n: m.LAUNCHES for n, m in list(sys.modules.items())
+                if n.startswith("planer_tpu_torch.ops.kernels.")
+                and hasattr(m, "LAUNCHES")}
+    before = {n: collections.Counter(c) for n, c in launches.items()}
+    k = 5
+    for _ in range(k):
+        prog(x)
+    torch.cuda.synchronize()
+    for n, c in launches.items():
+        want = {key: k * v for key, v in captured.get(id(c), {}).items()}
+        assert dict(c - before[n]) == want, n
+    stage64 = launches["planer_tpu_torch.ops.kernels.stage64"]
+    assert sum((stage64 - before[
+        "planer_tpu_torch.ops.kernels.stage64"]).values()) == 3 * k

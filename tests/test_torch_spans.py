@@ -17,7 +17,6 @@ import torch
 
 from planer_tpu_torch import models as tm
 from planer_tpu_torch.runtime import profiler
-from planer_tpu_torch.runtime import program as tprogram
 from planer_tpu_torch.runtime.net import Net
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -271,11 +270,11 @@ def test_a_trace_without_layers_keeps_the_calls_path(net, tmp_path,
     monkeypatch.setattr(torch.profiler, "record_function",
                         lambda name: entered.append(name) or real(name))
     with profiler.trace(None, layers=False) as prof:
-        assert not tprogram.TRACING
+        assert not profiler.TRACING
         net(_x())
     assert entered == []
     assert [s.name for s in prof.recording.spans] == CALL
-    assert profiler.RECORDING is None and not tprogram.TRACING
+    assert profiler.RECORDING is None and not profiler.TRACING
     with profiler.trace(str(tmp_path), layers=False):
         net(_x())
     assert (tmp_path / "trace.json").exists()
