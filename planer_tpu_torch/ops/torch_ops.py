@@ -17,6 +17,10 @@ package's numerics, not just its math:
     float32's exact range;
   * dequant is ``acc.float() * (sx * w_scale)`` with the scale product taken
     first, cast to the output dtype, and the bias added after the cast;
+  * the dtype conversions of that chain ride inside the arithmetic pass
+    beside them (``_f32_mul``, ``_f32_add``, the dequant's ``out=``): a
+    mixed-dtype op computes in the common dtype and rounds once on the
+    store, so each result is the separate cast's bit for bit;
   * a quantized ``dense``, and with ``_PALLAS_CONV1X1`` a weight-only 1x1
     conv, go through ``ops/kernels/gemm.dense_q``, which picks the numerics
     of the reference's kernel branch or of its fallback by shape.
@@ -281,13 +285,62 @@ def _window_max(x, kh, kw, sh, sw, pads, fill):
 # conv
 # --------------------------------------------------------------------------
 
+_F32 = torch.float32
+
+
+def _cast_fused(*dtypes):
+    """Count one pass of the W8A8 chain that took a dtype conversion inside
+    its arithmetic (an operand or result of ``dtypes`` other than float32),
+    where the list runs on the host, not on a replay."""
+    rec = _prof.RECORDING
+    if rec is not None and any(d != _F32 for d in dtypes):
+        rec.count("w8a8.cast_fused")
+
+
+def _as_f32_operand(x):
+    """x where float32 arithmetic with it converts it exactly as ``.float()``
+    would (bf16, f16, integers), else ``x.float()``."""
+    return x if torch.promote_types(x.dtype, _F32) == _F32 else x.float()
+
+
+def _f32_mul(x, v, op=torch.mul):
+    """``op(x.float(), v)`` for the float32 0-dim tensor v, with x converted
+    inside the pass: v as a 1-element dimensioned view, so that it promotes
+    x to float32 where the 0-dim tensor would not."""
+    x = _as_f32_operand(x)
+    _cast_fused(x.dtype)
+    return op(x, v.reshape(1))
+
+
+def _f32_add(a, b, dtype=_F32):
+    """``(a.float() + b.float()).to(dtype)`` in one pass where it can be:
+    each operand converted inside the add (one ``.float()`` stays where
+    neither is float32) and the sum rounded once into ``dtype``, laid out
+    as the add lays out its result."""
+    a, b = _as_f32_operand(a), _as_f32_operand(b)
+    if _F32 not in (a.dtype, b.dtype):
+        a = a.float()
+    if not dtype.is_floating_point:
+        return (a + b).to(dtype)
+    _cast_fused(a.dtype, b.dtype, dtype)
+    if dtype == _F32:
+        return a + b
+    return torch.add(a, b, out=torch.empty(0, dtype=dtype, device=a.device))
+
+
+def _codes(v):
+    """int8 codes of the fresh float32 tensor v: clamp(round(v)), in place
+    where it can be, then the cast."""
+    return v.round_().clamp_(-127, 127).to(torch.int8)
+
+
 def quantize(x, s: float):
     """int8 codes of x at the static scale s: clamp(round(x / s)), with the
     division compiled as the reference compiles it — a multiply by the
-    float32 reciprocal of the float32 constant."""
+    float32 reciprocal of the float32 constant (x converted to float32
+    inside the multiply)."""
     r = np.float32(1.0) / np.float32(s)
-    return torch.clamp(torch.round(x.float() * scalar(r, x)),
-                       -127, 127).to(torch.int8)
+    return _codes(_f32_mul(x, scalar(r, x)))
 
 
 def _act_quant(x, K):
@@ -296,8 +349,17 @@ def _act_quant(x, K):
     if K.act_scale is not None:
         return quantize(x, K.act_scale), scalar(K.act_scale, x)
     sx = torch.clamp_min(x.abs().amax(), 1e-6).float() / 127.0
-    q = torch.clamp(torch.round(x.float() / sx), -127, 127).to(torch.int8)
-    return q, sx
+    return _codes(_f32_mul(x, sx, torch.div)), sx
+
+
+def _decode(x, K, compute_dtype):
+    """The int8 codes x at K.act_scale as values in the compute dtype:
+    each exact code times the scale rounded to that dtype, the code
+    converted inside the multiply (an int8 tensor times a 0-dim tensor of
+    the compute dtype computes in it)."""
+    odt = to_dtype(compute_dtype) or torch.float32
+    _cast_fused(x.dtype)
+    return torch.mul(x, scalar(K.act_scale, x, odt))
 
 
 def _conv_w8a8(x, K, B, strides, dilations, pads, pre_quantized=False,
@@ -311,11 +373,20 @@ def _conv_w8a8(x, K, B, strides, dilations, pads, pre_quantized=False,
         q, sx = x, scalar(K.act_scale, x)
     else:
         (q, sx), odt = _act_quant(x, K), x.dtype
-    acc = conv_s8(q, K.q, strides, pads, dilations)
-    w_scale = K.scale.reshape(1, -1, 1, 1)
-    out = (acc.float() * (sx * w_scale)).to(odt)
+    return _dequant(conv_s8(q, K.q, strides, pads, dilations), sx, K, B,
+                    odt)
+
+
+def _dequant(acc, sx, K, B, odt):
+    """``(acc.float() * (sx * w_scale)).to(odt)``, then the bias in odt, in
+    two passes: int32 times float32 computes in float32 and rounds once
+    into an odt tensor laid out as acc (channels-last); the bias is added
+    after that rounding, as in the reference."""
+    out = torch.mul(acc, sx * K.scale.reshape(1, -1, 1, 1),
+                    out=torch.empty_like(acc, dtype=odt))
+    _cast_fused(acc.dtype)
     if B is not None:
-        out = out + B.reshape(1, -1, 1, 1).to(odt)
+        out += B.reshape(1, -1, 1, 1).to(odt)
     return out
 
 
@@ -444,9 +515,7 @@ def _conv2d(x, K, B=None, group=1, strides=(1, 1), dilations=(1, 1),
                               pre_quantized=True,
                               compute_dtype=compute_dtype)
         if _int8_codes(x.shape, x.dtype, K, group):
-            # C < 128: decode the codes to the compute dtype
-            odt = to_dtype(compute_dtype) or torch.float32
-            x = x.to(odt) * scalar(K.act_scale, x, odt)
+            x = _decode(x, K, compute_dtype)       # C < 128
         if route == "w8a8":
             return _conv_w8a8(x, K, B, strides, dilations, pads)
         if route in ("gemm", "gemm_fallback"):
@@ -791,18 +860,14 @@ def add(a, b, qadd=None, compute_dtype=None):
         # contributes its codes exactly (ratio == 1.0)
         def term(x, s):
             r = (1.0 / so) if s is None else (s / so)
-            x = x.float()
-            return x if r == 1.0 else x * scalar(r, x)
-        v = term(a, sa) + term(b, sb)
-        return torch.clamp(torch.round(v), -127, 127).to(torch.int8)
-    af = a.float() if sa is None else a.float() * scalar(sa, a)
-    bf = b.float() if sb is None else b.float() * scalar(sb, b)
-    v = af + bf
+            return x if r == 1.0 else _f32_mul(x, scalar(r, x))
+        return _codes(_f32_add(term(a, sa), term(b, sb)))
+    af = a if sa is None else _f32_mul(a, scalar(sa, a))
+    bf = b if sb is None else _f32_mul(b, scalar(sb, b))
     # out dtype: the non-code operand's, else the program compute dtype
-    for x, s in ((a, sa), (b, sb)):
-        if s is None:
-            return v.to(x.dtype)
-    return v.to(to_dtype(compute_dtype) or torch.float32)
+    odt = next((x.dtype for x, s in ((a, sa), (b, sb)) if s is None),
+               to_dtype(compute_dtype) or torch.float32)
+    return _f32_add(af, bf, odt)
 
 
 def mul(a, b):

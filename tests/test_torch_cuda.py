@@ -5,12 +5,14 @@ sets JAX up):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
+import collections
 import time
 
 import numpy as np
 import pytest
 import torch
 
+import separate_casts as sc
 from planer_tpu_torch import models as tm
 
 
@@ -329,9 +331,10 @@ def test_copy_in_staged_counts_the_replays_of_host_inputs(main_path):
             prog(v)
         prog(_image(2, "float32", 42))
     n = x.nbytes
-    # (the compile's walk also counts its convs' routes, ``conv*``)
+    # (the compile's walk also counts its convs' routes, ``conv*``, and
+    # the W8A8 chain's fused casts, ``w8a8.*``)
     counters = {k: v for k, v in rec.counters.items()
-                if not k.startswith("conv")}
+                if not k.startswith(("conv", "w8a8."))}
     assert counters == {"in_bytes.pageable": 2 * n, "in_bytes.pinned": n,
                             "in_bytes.device": 2 * n, "copy_in.staged": 3,
                             "replays": 5, "compiles": 1, "captures": 1}
@@ -363,3 +366,61 @@ def test_replays_add_the_captures_launches_to_every_kernel_module(main_path):
     stage64 = launches["planer_tpu_torch.ops.kernels.stage64"]
     assert sum((stage64 - before[
         "planer_tpu_torch.ops.kernels.stage64"]).values()) == 3 * k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sc.FORMS)
+def test_fused_casts_equal_the_separate_casts_on_the_card(card, case):
+    """``test_torch_cast_fused.py``'s cases on the card, where an op with
+    mixed dtypes or an ``out=`` of another dtype runs the dynamic-cast
+    kernels: each fused form equals the separate casts bit for bit, in
+    the same layout."""
+    sc.check_form(case, "cuda")
+
+
+def _bench_net(name, side, batch):
+    import json
+    from portbench import harness, inputs
+    from portbench.configs import resnet, yolo
+    c = next(c for c in harness.load_spec()["configs"] if c["name"] == name)
+    with open(harness.CHECKOUT / c["file"]) as f:
+        cfg = {**json.load(f), "image_side": side}
+    fam = yolo if name.startswith("yolo") else resnet
+    seed = 2 ** 31 + 25
+    a = fam.arrays(cfg, seed, "cuda")
+    net = fam.build(cfg, a, fam.calibration(cfg, seed, "cuda"), "cuda")
+    return cfg, net, inputs.images(batch, side,
+                                   inputs.generator(seed, "test", "cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,side,batch", [
+    ("resnet18-int8-224", 224, 2), ("yolov3-int8-416", 128, 2)])
+def test_programs_answer_as_with_the_separate_casts(card, name, side, batch,
+                                                    monkeypatch):
+    """The benchmark's ResNet-18 at b2 and YOLO-v3 at 128 px: the first
+    call counts ``w8a8.cast_fused`` twice per walk of the route plan (the
+    warm run and the capture), a replay none, and the captured answers
+    equal bit for bit those of an eager walk with the separate casts in
+    the library's place."""
+    from planer_tpu_torch.runtime import profiler
+    from portbench.configs import resnet_ref, yolo_ref
+    cfg, net, x = _bench_net(name, side, batch)
+    ref = yolo_ref if name.startswith("yolo") else resnet_ref
+    routes = collections.Counter(
+        r for r, _ in ref.routes(cfg, side, batch).values()
+        if r not in ("stage64",))
+    want = sc.planned_casts(net, routes)
+    with profiler.record() as rec:
+        first = net.forward(x)
+    assert rec.counters[sc.COUNTER] == 2 * want
+    with profiler.record() as rec:
+        again = net.forward(x)
+    torch.cuda.synchronize()
+    assert sc.COUNTER not in rec.counters and rec.counters["replays"] == 1
+    sc.use(monkeypatch)
+    old = net.program._run(x)
+    for y in (first, again):
+        for g, w in zip(*(v if isinstance(v, (list, tuple)) else [v]
+                          for v in (y, old)), strict=True):
+            sc.same_bits(g, w)

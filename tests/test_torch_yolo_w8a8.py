@@ -6,7 +6,9 @@ program's three heads sit within the cell's limit of the reference and the
 4-bit control does not (with the library's bf16 conv in the reference,
 they are equal), and the program's ``conv.route.*`` counters give
 the reference's route plan (YOLO-v3 and, outside its fused stage,
-ResNet-18)."""
+ResNet-18), its ``w8a8.cast_fused`` counter the passes of that plan
+whose dtype conversion rides inside the arithmetic, and the separate
+casts those passes replaced (``separate_casts``) the same answers."""
 import collections
 import json
 
@@ -15,7 +17,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import separate_casts as sc
 from planer_tpu_torch.models import yolov3
+from planer_tpu_torch.ops import torch_ops as tops
 from planer_tpu_torch.runtime import profiler
 from portbench import compare, harness, inputs
 from portbench.configs import resnet, resnet_ref, yolo, yolo_ref
@@ -49,6 +53,7 @@ def built():
     with profiler.record() as rec:
         heads = net.forward(x)
     return {"cfg": cfg, "arrays": a, "calib": cal, "x": x, "heads": heads,
+            "net": net,
             "counters": dict(rec.counters),
             "ref": yolo.reference(cfg, a, cal, "cpu")}
 
@@ -159,3 +164,41 @@ def test_route_counters_give_the_reference_plan_for_resnet18():
     with profiler.record() as rec:
         net.forward(x)
     assert routed(rec.counters) == want
+
+
+def test_cast_fused_counts_the_plans_passes_for_yolo(built, monkeypatch):
+    """At 128 px b4: the one W8A8 conv's two passes, the 20 s8 convs'
+    dequants and the 23 residual adds' rescales and sums; a walk with the
+    separate casts gives the same heads bit for bit and counts none."""
+    routes = plan(yolo_ref.routes(built["cfg"], SIDE, BATCH))
+    want = sc.planned_casts(built["net"], routes)
+    assert want == 66
+    assert built["counters"][sc.COUNTER] == want
+    sc.use(monkeypatch)
+    with profiler.record() as rec:
+        old = built["net"].program._run(built["x"])
+    assert sc.COUNTER not in rec.counters
+    for g, w in zip(built["heads"], old, strict=True):
+        sc.same_bits(g, w)
+
+
+@pytest.mark.parametrize("batch", [1, 64])
+def test_cast_fused_counts_the_plans_passes_for_resnet18(batch, monkeypatch):
+    """At 224 px, b1 and the b64 plan (a b1 image whose gates read the
+    batch as 64, ``logical_batch``): 13 s8 dequants, 14 requants of convs
+    that emit codes, the stem's prologue and the six residual adds' 9
+    passes; the separate casts give the same logits bit for bit."""
+    cfg = config("resnet18-int8-224")
+    a = resnet.arrays(cfg, SEED, "cpu")
+    net = resnet.build(cfg, a, resnet.calibration(cfg, SEED, "cpu"), "cpu")
+    x = inputs.images(1, 224, inputs.generator(SEED, "test", "cpu"))
+    routes = plan(resnet_ref.routes(cfg, 224, batch), skip=("stage64",))
+    want = sc.planned_casts(net, routes)
+    assert want == 37
+    with tops.logical_batch(batch), profiler.record() as rec:
+        y = net.program._run(x)
+    assert routed(rec.counters) == routes
+    assert rec.counters[sc.COUNTER] == want
+    sc.use(monkeypatch)
+    with tops.logical_batch(batch):
+        sc.same_bits(y, net.program._run(x))
