@@ -11,9 +11,10 @@ converter's layouts (dense weight (O, I) with ``shp`` its transpose;
 ConvTranspose (I, O/g, kh, kw)).  A module that lives on the card is read
 through ``.cpu()``.
 
-Coverage: conv, linear, batch and instance norm, the activations, pools,
-upsample and interpolate, flatten, cat, the arithmetic operators, view and
-reshape.  Unknown nodes raise with the fx target name.
+Coverage: conv, linear, batch, instance and layer norm, the activations,
+pools, upsample and interpolate, flatten, cat, permute, the arithmetic
+operators (a parameter operand as a weight), view and reshape.  Unknown
+nodes raise with the fx target name.
 """
 from __future__ import annotations
 
@@ -37,6 +38,13 @@ class _TraceTimeOnly:
 
 def _np(t):
     return t.detach().cpu().numpy()
+
+
+def _arg(node, pos, name, default=None):
+    """An fx call's argument, given by keyword or at position ``pos``."""
+    if name in node.kwargs:
+        return node.kwargs[name]
+    return node.args[pos] if len(node.args) > pos else default
 
 
 class _Lowerer:
@@ -131,6 +139,9 @@ class _Lowerer:
             Kn = self.add_weight(f"{name}.foldK", K)
             Bn = self.add_weight(f"{name}.foldB", B)
             return self.emit("batchnorm", [x, Kn, Bn])
+        if isinstance(mod, nn.LayerNorm):
+            return self._emit_layernorm(x, mod.normalized_shape, mod.weight,
+                                        mod.bias, mod.eps, name)
         if isinstance(mod, nn.InstanceNorm2d):
             c = mod.num_features
             s = _np(mod.weight) if mod.affine else np.ones(c, np.float32)
@@ -214,20 +225,30 @@ class _Lowerer:
             f"torch module {type(mod).__name__} at {node.target!r} "
             f"has no IR lowering")
 
+    def _emit_layernorm(self, x, shape, weight, bias, eps, name):
+        """``layernorm`` over the trailing ``shape``; a missing scale or
+        bias (``elementwise_affine=False``) as ones or zeros.  ``weight``
+        and ``bias`` are parameters or IR tensor names."""
+        shape = tuple(int(v) for v in shape)
+        srcs = [x]
+        for v, part, fill in ((weight, "s", np.ones), (bias, "b", np.zeros)):
+            if isinstance(v, str):
+                srcs.append(v)
+            else:
+                a = fill(shape, np.float32) if v is None else _np(v)
+                srcs.append(self.add_weight(f"{name}.{part}", a))
+        return self.emit("layernorm", srcs, axis=-len(shape),
+                         epsilon=float(eps))
+
     @staticmethod
-    def _pool_args(node, a):
+    def _pool_args(node):
         """kernel/stride/padding of a functional pool call, positional OR
         keyword (F.avg_pool2d(x, 3, 1, 1) is the common positional style)."""
-        def get(pos, name, default=None):
-            if name in node.kwargs:
-                return node.kwargs[name]
-            return a[pos] if len(a) > pos else default
-
-        k = get(1, "kernel_size")
+        k = _arg(node, 1, "kernel_size")
         k = k if isinstance(k, (tuple, list)) else (k, k)
-        st = get(2, "stride") or k
+        st = _arg(node, 2, "stride") or k
         st = st if isinstance(st, (tuple, list)) else (st, st)
-        p_ = get(3, "padding", 0)
+        p_ = _arg(node, 3, "padding", 0)
         p_ = p_ if isinstance(p_, (tuple, list)) else (p_, p_)
         return k, st, p_
 
@@ -300,7 +321,7 @@ class _Lowerer:
                                        node.kwargs.get("align_corners"))
         if fn is F.max_pool2d:
             # F.max_pool2d(input, kernel, stride, padding, dilation, ceil)
-            k, st, p_ = self._pool_args(node, a)
+            k, st, p_ = self._pool_args(node)
             dil = node.kwargs.get("dilation", a[4] if len(a) > 4 else 1)
             if (dil if isinstance(dil, int) else max(dil)) != 1:
                 raise NotImplementedError("max_pool2d dilation != 1")
@@ -311,6 +332,17 @@ class _Lowerer:
                              strides=list(st))
         if fn is F.adaptive_avg_pool2d:
             return self.emit("gap", [src(0)])
+        if fn is F.layer_norm:
+            w, b = (_arg(node, i, k) for i, k in ((2, "weight"),
+                                                  (3, "bias")))
+            return self._emit_layernorm(
+                src(0), _arg(node, 1, "normalized_shape"),
+                None if w is None else self.env[w.name],
+                None if b is None else self.env[b.name],
+                _arg(node, 4, "eps", 1e-5), self.fresh("layernorm"))
+        if fn is torch.permute:
+            dims = _arg(node, 1, "dims")
+            return self.emit("transpose", [src(0)], axis=list(dims))
         if fn is F.gelu:
             approx = node.kwargs.get("approximate", "none")
             return self.emit("gelu", [src(0)], approximate=approx)
@@ -322,7 +354,7 @@ class _Lowerer:
             return self.emit("elu", [src(0)], alpha=alpha)
         if fn is F.avg_pool2d:
             # F.avg_pool2d(input, kernel, stride, padding, ceil, count_incl)
-            k, st, p_ = self._pool_args(node, a)
+            k, st, p_ = self._pool_args(node)
             if node.kwargs.get("ceil_mode", False) or (len(a) > 4 and a[4]):
                 raise NotImplementedError("avg_pool2d ceil_mode=True")
             cip = node.kwargs.get("count_include_pad",
@@ -365,7 +397,10 @@ class _Lowerer:
             axis = node.args[1] if len(node.args) > 1 else 0
             return self.emit("flatten", [x], axis=axis)
         if name == "permute":
-            return self.emit("transpose", [x], axis=list(node.args[1:]))
+            dims = node.args[1:]
+            if len(dims) == 1 and isinstance(dims[0], (tuple, list)):
+                dims = dims[0]
+            return self.emit("transpose", [x], axis=list(dims))
         if name == "mean":
             axes = node.args[1] if len(node.args) > 1 else None
             kd = node.kwargs.get("keepdim", False)

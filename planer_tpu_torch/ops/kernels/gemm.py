@@ -219,12 +219,11 @@ def dense_q(x, K: QTensor, B=None, *, plain=False, branch=None):
     forces the unsharded GEMM's.  ``plain`` runs the kernel branch's plain
     version on any device — the reference a caller holds the kernel
     against; it never happens by itself."""
-    from ..torch_ops import logical_rows
+    from ..torch_ops import dense_route
     N, Kd = K.q.shape
     x2d = x.reshape(-1, Kd)
     if branch is None:
-        rows = logical_rows(x2d.shape[0], x.shape[0] if x.ndim > 1 else 0)
-        branch = "fallback" if tile_plan(rows, N, Kd) is None else "kernel"
+        branch = dense_route(tuple(x.shape), K)
     if branch == "fallback":
         y = fallback_dense(x2d, K, B)
     elif plain:

@@ -73,15 +73,15 @@ __all__ = ["conv2d", "conv_transpose2d", "dense", "matmul", "maxpool",
            "absolute", "negative", "minimum", "maximum", "floor", "ceil",
            "round_", "sign", "prelu", "elu", "softplus", "gelu",
            "mean_variadic", "sum_variadic", "batchnorm",
-           "instance_normalization", "flatten", "reshape", "transpose",
-           "concat", "split", "gather", "slice_", "expand", "tile", "pad",
-           "squeeze", "unsqueeze", "shape_of", "cast", "const",
-           "constant_of_shape", "arange", "scatternd", "nonzero", "topk",
-           "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
+           "instance_normalization", "layernorm", "flatten", "reshape",
+           "transpose", "concat", "split", "gather", "slice_", "expand",
+           "tile", "pad", "squeeze", "unsqueeze", "shape_of", "cast",
+           "const", "constant_of_shape", "arange", "scatternd", "nonzero",
+           "topk", "reduce_sum", "reduce_mean", "reduce_max", "reduce_min",
            "reduce_prod", "argmax", "argmin", "space_to_depth",
            "depth_to_space", "upsample", "resize_op", "stage64", "stagen",
            "return_", "conv_s8", "quantize", "scalar", "to_dtype",
-           "conv_route", "logical_batch", "logical_rows"]
+           "conv_route", "dense_route", "logical_batch", "logical_rows"]
 
 
 # opt-in, as in the JAX package (jax_ops._PALLAS_CONV1X1): route quantized
@@ -572,14 +572,33 @@ def conv_transpose2d(x, K, B=None, strides=(2, 2), dilations=(1, 1),
 # dense / pool
 # --------------------------------------------------------------------------
 
+def dense_route(xshape, K: QTensor) -> str:
+    """The branch a quantized dense with weight ``K`` ((N, Kd)) takes on an
+    input of shape ``xshape``, read as (rows, Kd): ``"kernel"`` where
+    ``gemm.tile_plan`` admits the GEMM, its rows counted at
+    ``logical_batch``, else ``"fallback"``."""
+    from .kernels import gemm
+    n, kd = K.q.shape
+    rows = logical_rows(int(np.prod(xshape, dtype=np.int64)) // kd,
+                        xshape[0] if len(xshape) > 1 else 0)
+    return "fallback" if gemm.tile_plan(rows, n, kd) is None else "kernel"
+
+
 def dense(x, K, B=None, shp=None, plain=False, branch=None):
     """y = x @ K.T + B.  A quantized K goes through ``gemm.dense_q``, as in
     the JAX package: its kernel branch where the shape tiles, its fallback's
-    numerics elsewhere (the ResNet fc).  ``plain`` (an op override) runs the
-    kernel branch's plain version on any device; ``branch`` (a sharded
-    program's) forces the branch the unsharded GEMM takes."""
+    numerics elsewhere (the ResNet fc), counted as ``dense.route.<branch>``
+    where the list runs on the host (not on a replay).  ``plain`` (an op
+    override) runs the kernel branch's plain version on any device;
+    ``branch`` (a sharded program's) forces the branch the unsharded GEMM
+    takes."""
     if isinstance(K, QTensor):
         from .kernels import gemm
+        if branch is None:
+            branch = dense_route(tuple(x.shape), K)
+        rec = _prof.RECORDING
+        if rec is not None:
+            rec.count("dense.route." + branch)
         return gemm.dense_q(x, K, B, plain=plain, branch=branch)
     # bf16 operands are exact in f32, so an f32 product is the f32-accumulated
     # bf16 dot (TF32 is off inside every program and executor call)
@@ -1070,6 +1089,22 @@ def gelu(x, approximate="none"):
 
 def batchnorm(x, K, B):
     return x * K + B
+
+
+def layernorm(x, scale, bias, axis=-1, epsilon=1e-5):
+    """ONNX LayerNormalization: (x - mean) / sqrt(var + epsilon) * scale +
+    bias over the axes from ``axis`` to the last, the variance biased.
+    ``F.layer_norm`` computes the statistics, the normalisation and the
+    affine in float32 (its accumulate type for a 16-bit x) and rounds once
+    to x's dtype; scale and bias are taken in x's dtype, as the program
+    hands every float parameter over.  Counted (``layernorm``) where the
+    list runs on the host, not on a replay."""
+    rec = _prof.RECORDING
+    if rec is not None:
+        rec.count("layernorm")
+    shape = tuple(x.shape[int(axis) % x.ndim:])
+    return F.layer_norm(x, shape, scale.reshape(shape).to(x.dtype),
+                        bias.reshape(shape).to(x.dtype), float(epsilon))
 
 
 def instance_normalization(x, s, bias, epsilon=1e-5):

@@ -111,6 +111,8 @@ _reg("identity", tops.identity)
 # normalization
 _reg("batchnorm", tops.batchnorm)
 _reg("instancenormalization", tops.instance_normalization)
+# the port's own (ConvNeXt); the JAX registry has no LayerNorm
+_reg("layernorm", tops.layernorm)
 
 # shape / index / tensor (shape operands are host values)
 _reg("reshape", tops.reshape, static_args=(1,))

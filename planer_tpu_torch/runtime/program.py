@@ -825,7 +825,6 @@ class Program:
             return "plain[" + " + ".join(
                 f"{k} x{n}" for k, n in kernels.items()) + "]"
         if op in ("conv", "dense") and isinstance(args[1], QTensor):
-            from ..ops.kernels import gemm
             if op == "conv":
                 x = args[0]
                 route = kw.get("route") or tops.conv_route(
@@ -833,13 +832,9 @@ class Program:
                     kw.get("strides"), kw.get("dilations"), kw.get("pads"),
                     kw.get("auto_pad"))
             else:
-                n, kd = args[1].q.shape
-                route = kw.get("branch") or (
-                    "gemm" if gemm.tile_plan(
-                        int(np.prod(args[0].shape)) // kd, n, kd)
-                    is not None else "gemm_fallback")
-                route = {"kernel": "gemm", "fallback": "gemm_fallback"}.get(
-                    route, route)
+                route = {"kernel": "gemm", "fallback": "gemm_fallback"}[
+                    kw.get("branch") or tops.dense_route(
+                        tuple(args[0].shape), args[1])]
             if route in ("s8", "w8a8"):
                 return "_int_mm"
             if route == "gemm":

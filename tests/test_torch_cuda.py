@@ -331,10 +331,11 @@ def test_copy_in_staged_counts_the_replays_of_host_inputs(main_path):
             prog(v)
         prog(_image(2, "float32", 42))
     n = x.nbytes
-    # (the compile's walk also counts its convs' routes, ``conv*``, and
-    # the W8A8 chain's fused casts, ``w8a8.*``)
+    # (the compile's walk also counts its convs' and its fc's routes,
+    # ``conv*`` and ``dense.*``, and the W8A8 chain's fused casts,
+    # ``w8a8.*``)
     counters = {k: v for k, v in rec.counters.items()
-                if not k.startswith(("conv", "w8a8."))}
+                if not k.startswith(("conv", "dense.", "w8a8."))}
     assert counters == {"in_bytes.pageable": 2 * n, "in_bytes.pinned": n,
                             "in_bytes.device": 2 * n, "copy_in.staged": 3,
                             "replays": 5, "compiles": 1, "captures": 1}
@@ -381,11 +382,11 @@ def test_fused_casts_equal_the_separate_casts_on_the_card(card, case):
 def _bench_net(name, side, batch):
     import json
     from portbench import harness, inputs
-    from portbench.configs import resnet, yolo
+    from portbench.configs import convnext, resnet, yolo
     c = next(c for c in harness.load_spec()["configs"] if c["name"] == name)
     with open(harness.CHECKOUT / c["file"]) as f:
         cfg = {**json.load(f), "image_side": side}
-    fam = yolo if name.startswith("yolo") else resnet
+    fam = {"yolo": yolo, "convnext": convnext}.get(cfg["family"], resnet)
     seed = 2 ** 31 + 25
     a = fam.arrays(cfg, seed, "cuda")
     net = fam.build(cfg, a, fam.calibration(cfg, seed, "cuda"), "cuda")
@@ -424,3 +425,39 @@ def test_programs_answer_as_with_the_separate_casts(card, name, side, batch,
         for g, w in zip(*(v if isinstance(v, (list, tuple)) else [v]
                           for v in (y, old)), strict=True):
             sc.same_bits(g, w)
+
+
+def _routed(counters):
+    return {k: v for k, v in counters.items()
+            if k.startswith(("conv.route.", "dense.route.", "layernorm"))}
+
+
+@pytest.mark.cuda
+def test_convnext_base_counts_the_reference_route_plan_at_b64(card):
+    """The benchmark's ConvNeXt-Base at 224, b64: a walk counts the
+    reference's plan (72 Linears on ``dense_q``'s kernel branch, the
+    classifier on its fallback, 41 LayerNorms, 3 W8A8 and 37 float convs)
+    and launches 72 ``dense_q``; a first call counts the plan twice (the
+    warm run and the capture), a replay none of it but the capture's 72
+    launches, and answers as the walk bit for bit."""
+    from planer_tpu_torch.ops.kernels import gemm
+    from planer_tpu_torch.runtime import profiler
+    from portbench.configs import convnext_ref
+    cfg, net, x = _bench_net("convnext-base-int8-224", 224, 64)
+    want = convnext_ref.plan(cfg, 224, 64)
+    assert want == {"dense.route.kernel": 72, "dense.route.fallback": 1,
+                    "layernorm": 41, "conv.route.w8a8": 3,
+                    "conv.route.float": 37}
+    launched = gemm.LAUNCHES["dense_q"]
+    with profiler.record() as rec:
+        walk = net.program._run(x)
+    assert _routed(rec.counters) == want
+    with profiler.record() as rec:
+        net.forward(x)
+    assert _routed(rec.counters) == {k: 2 * v for k, v in want.items()}
+    with profiler.record() as rec:
+        again = net.forward(x)
+    torch.cuda.synchronize()
+    assert _routed(rec.counters) == {} and rec.counters["replays"] == 1
+    assert gemm.LAUNCHES["dense_q"] - launched == 3 * 72
+    sc.same_bits(again, walk)

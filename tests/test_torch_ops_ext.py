@@ -83,8 +83,9 @@ def test_registry_holds_the_new_opcodes():
     assert treg.OPS["slice"].static_args == (1, 2, 3, 4)
     assert treg.OPS["range"].static_args == (0, 1, 2)
     # every opcode of the JAX registry is ported since the op library's
-    # slice (test_torch_ops_lib.py holds the parity)
-    assert len(treg.OPS) == len(jreg.OPS) == 83
+    # slice (test_torch_ops_lib.py holds the parity), and the port adds
+    # its own layernorm
+    assert len(jreg.OPS) == 83 and len(treg.OPS) == 84
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
